@@ -1,0 +1,51 @@
+"""optical_flow_tpu_torch — the PyTorch/CUDA port of optical_flow_tpu.
+
+Dense pyramidal Lucas–Kanade flow and the streaming video gesture pipeline,
+on PyTorch tensors with hand-written CUDA kernels for the H100 (sm_90a) on
+the hot path. Module paths and public names mirror the JAX package, which
+stays the reference the port is tested against. This package never imports
+JAX.
+
+Layer map:
+  ops/        dense tensor ops with OpenCV-faithful numerics
+  kernels/    K1-K4 CUDA kernels (csrc/) and their plain PyTorch versions
+  flow/       single-level LK and the coarse-to-fine controller
+  pipeline/   preprocess -> pyramidal flow -> gesture video pipeline
+  convert.py  configurations and streaming state from the JAX package
+"""
+
+from optical_flow_tpu_torch.config import (
+    FlowConfig,
+    GestureConfig,
+    PreprocessConfig,
+    VideoConfig,
+)
+from optical_flow_tpu_torch.flow.lk import lucas_kanade
+from optical_flow_tpu_torch.flow.coarse_to_fine import (
+    coarse_to_fine,
+    coarse_to_fine_pyramids,
+    coarse_to_fine_with_images,
+)
+from optical_flow_tpu_torch.ops.pyramid import (
+    gaussian_pyramid,
+    max_pyramid_levels,
+    pyr_down,
+    pyr_up,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "FlowConfig",
+    "GestureConfig",
+    "PreprocessConfig",
+    "VideoConfig",
+    "lucas_kanade",
+    "coarse_to_fine",
+    "coarse_to_fine_pyramids",
+    "coarse_to_fine_with_images",
+    "gaussian_pyramid",
+    "max_pyramid_levels",
+    "pyr_down",
+    "pyr_up",
+]

@@ -1,0 +1,38 @@
+"""Hand-written CUDA kernels for the H100 (sm_90a), one per TPU kernel on
+the streaming flow path, each with its plain PyTorch version:
+
+  K1  lk_kernel.lucas_kanade_cuda         csrc/lk.cu
+  K2  pyrdown_kernel.pyr_down_cuda        csrc/pyrdown.cu
+  K3  warp_lk_kernel.pyrup_warp_lk_cuda   csrc/warp_lk.cu
+  K4  warp_lk_kernel.warp_lk_cuda         csrc/warp_lk.cu
+
+A wrapper given a CUDA tensor launches its kernel or raises; given a CPU
+tensor it runs the plain version. Launches are counted in
+``_lib.launches`` (``launch_counts()``, ``reset_launch_counts()``).
+"""
+
+from typing import Dict
+
+from optical_flow_tpu_torch.kernels import _lib
+from optical_flow_tpu_torch.kernels.lk_kernel import lucas_kanade_cuda
+from optical_flow_tpu_torch.kernels.pyrdown_kernel import pyr_down_cuda
+from optical_flow_tpu_torch.kernels.warp_lk_kernel import pyrup_warp_lk_cuda, warp_lk_cuda
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches so far, by C entry point."""
+    return dict(_lib.launches)
+
+
+def reset_launch_counts() -> None:
+    _lib.reset_launches()
+
+
+__all__ = [
+    "launch_counts",
+    "lucas_kanade_cuda",
+    "pyr_down_cuda",
+    "pyrup_warp_lk_cuda",
+    "reset_launch_counts",
+    "warp_lk_cuda",
+]

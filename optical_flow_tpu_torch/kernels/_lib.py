@@ -1,0 +1,130 @@
+"""Build, load and launch the port's CUDA kernels.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+build happens at the first launch (never at import), into ``build/kernels/``
+at the root of the checkout, under a name that hashes the sources and flags,
+so an edited source is rebuilt and an unchanged one is reused.
+
+Flags: ``-O3 -fmad=false`` and no ``--use_fast_math``. Without contraction
+every product and sum rounds as in eager PyTorch, so a kernel agrees with
+its plain version to the last bit or nearly; fast math would make ``/``
+approximate and flush denormals.
+
+Each C entry point returns ``cudaGetLastError()``; ``launch`` raises if it
+is not 0 and otherwise adds one to the kernel's count in ``launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("lk.cu", "pyrdown.cu", "warp_lk.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Every entry point ends with the stream (a cudaStream_t passed as a pointer).
+_ARGTYPES = {
+    "oft_lk": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "oft_pyrdown": [_P, _P, _I, _I, _I, _P],
+    "oft_warp_lk": [_P] * 6 + [_I, _I, _I, _I, _F, _F, _P],
+    "oft_pyrup_warp_lk": [_P] * 6 + [_I, _I, _I, _I, _F, _P],
+}
+
+# Launch counts by C entry point: incremented only where a kernel launched.
+launches = dict.fromkeys(_ARGTYPES, 0)
+
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(f"nvcc not found (looked in {candidate} and on PATH)")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"liboft_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library if it is not built yet; return its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    return out
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point ``name`` on ``device``'s current stream; raise on a
+    launch error, count the launch otherwise."""
+    lib = library()
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    launches[name] += 1
+
+
+def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous float32 CUDA tensor on one
+    device (what the kernels take)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: all inputs must be on one CUDA device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: inputs must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")

@@ -1,0 +1,21 @@
+"""3x3 window sums on the interior (reference C5/C6, ``get_Sum9_Mat``).
+
+Interior pixels get the sum of their 3x3 neighbourhood; the 1-px border
+ring is exactly 0 (LKof.cpp:129-137). Rows are summed first, then columns,
+as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def sum3x3_interior(x: torch.Tensor) -> torch.Tensor:
+    """3x3 box sum on the interior of ``(..., H, W)``; the ring is zero."""
+    out = torch.zeros_like(x)
+    if x.shape[-2] < 3 or x.shape[-1] < 3:
+        return out
+    r = x[..., :-2, :] + x[..., 1:-1, :] + x[..., 2:, :]
+    s = r[..., :, :-2] + r[..., :, 1:-1] + r[..., :, 2:]
+    out[..., 1:-1, 1:-1] = s
+    return out

@@ -1,0 +1,109 @@
+"""Package-level contracts of the PyTorch port: it never imports JAX, its
+configurations carry across from the JAX package, and the paths not ported
+yet refuse clearly."""
+
+import dataclasses
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import torch
+
+from optical_flow_tpu import config as j_config
+from optical_flow_tpu_torch import config as t_config
+from optical_flow_tpu_torch import convert
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "optical_flow_tpu_torch"
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys\n"
+        "import optical_flow_tpu_torch, optical_flow_tpu_torch.convert\n"
+        "import optical_flow_tpu_torch.kernels, optical_flow_tpu_torch.pipeline\n"
+        "from optical_flow_tpu_torch.pipeline.video import VideoPipeline\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'optical_flow_tpu' or m.startswith('optical_flow_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_source_file_imports_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|optical_flow_tpu)(\s|\.|$)", re.M)
+    offenders = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
+    assert not offenders, offenders
+
+
+@pytest.mark.parametrize("make", ["fast", "fast_120", "default"])
+def test_video_config_from_jax(make):
+    build = {
+        "fast": lambda m: m.VideoConfig.fast(),
+        "fast_120": lambda m: m.VideoConfig.fast(size=(120, 120)),
+        "default": lambda m: m.VideoConfig(),
+    }[make]
+    assert convert.video_config_from_jax(build(j_config)) == build(t_config)
+
+
+def test_flow_config_impl_mapping():
+    f = convert.flow_config_from_jax(j_config.FlowConfig(impl="jnp", pyr_impl="pallas",
+                                                         mode="corrected", level_iters=2))
+    assert (f.impl, f.pyr_impl, f.mode, f.level_iters) == ("torch", "auto", "corrected", 2)
+    assert convert.flow_config_from_jax(j_config.FlowConfig(impl="pallas")).impl == "cuda"
+    with pytest.raises(ValueError):
+        convert.flow_config_from_jax(j_config.FlowConfig(pyr_impl="mxu"))
+    # the port's own fields are exactly the JAX package's
+    names = [x.name for x in dataclasses.fields(t_config.FlowConfig)]
+    assert names == [x.name for x in dataclasses.fields(j_config.FlowConfig)]
+
+
+def test_pipeline_state_from_jax_fresh_and_warm():
+    from optical_flow_tpu_torch.pipeline.video import VideoPipeline
+
+    pipe = VideoPipeline(t_config.VideoConfig.fast(size=(16, 16)))
+    pipe.restore(convert.pipeline_state_from_jax(
+        {"prev_gray": None, "prev_diff": None, "frame_idx": 0}))
+    assert pipe.state() == {"prev_gray": None, "prev_diff": None, "frame_idx": 0}
+    g = np.arange(256, dtype=np.float32).reshape(16, 16)
+    state = convert.pipeline_state_from_jax({"prev_gray": g, "prev_diff": g * 2, "frame_idx": 5})
+    pipe.restore(state)
+    got = pipe.state()
+    assert got["frame_idx"] == 5 and torch.equal(got["prev_diff"], torch.from_numpy(g * 2))
+
+
+def test_unported_paths_refuse():
+    from optical_flow_tpu_torch.flow.coarse_to_fine import resolve_warp_impl
+    from optical_flow_tpu_torch.pipeline.preprocess import preprocess_frame
+    from optical_flow_tpu_torch.pipeline.video import VideoPipeline
+
+    with pytest.raises(NotImplementedError):
+        VideoPipeline(t_config.VideoConfig())  # faithful uint8 chain
+    with pytest.raises(NotImplementedError):
+        preprocess_frame(torch.zeros(8, 8, 3, dtype=torch.uint8), t_config.PreprocessConfig())
+    with pytest.raises(NotImplementedError):
+        resolve_warp_impl(t_config.FlowConfig(warp_impl="shift", warp_clamp=8.0), True)
+    # 'auto' follows the device: shift_sep only for CUDA frames
+    cfg = t_config.FlowConfig(warp_clamp=8.0)
+    assert resolve_warp_impl(cfg, False) == ("gather", 0)
+    assert resolve_warp_impl(cfg, True) == ("shift_sep", 4)
+
+
+def test_kernel_build_and_checks_fail_loudly(tmp_path, monkeypatch):
+    from optical_flow_tpu_torch.kernels import _lib
+
+    monkeypatch.setattr(_lib, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", "")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _lib.build()
+    assert not (tmp_path / "kernels").exists()
+    assert _lib.library_path() == _lib.library_path()  # named by a content hash
+    with pytest.raises(ValueError):
+        _lib.check_cuda_f32("test", torch.zeros(2))  # CPU tensors never reach a kernel
