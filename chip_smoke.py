@@ -13,8 +13,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
      BGR frames, once through the kernels and once on the plain path, flows
      compared by quantiles and gesture votes within 1%, exact launch counts;
   5. K4 through the controller: corrected coarse_to_fine with level_iters=2
-     on a 1080^2 textured pair with a known sub-pixel shift.
-Then one JSON line with the kernels, and as the last line
+     on a 1080^2 textured pair with a known sub-pixel shift;
+  6. where the time goes: the kernel path's device busy time, idle share
+     and device time by kernel from one torch.profiler trace, written in
+     full to chiprun_out/profile_slice.json.
+Launch counters are reset just before the runs of phases 4 and 5 and read
+just after each. Then one JSON line with the kernels, and as the last line
 {"ok": true, "device": {...}}. It needs one CUDA device and no network.
 """
 
@@ -40,6 +44,9 @@ CLAMP, C = 8.0, 4  # VideoConfig.fast(): warp_clamp=8 -> shift_sep max_disp 4
 ATOL_LK = 2e-5  # well-conditioned pixels (tests/test_warp_lk_kernel.py:61-106)
 ATOL_PYRDOWN = 2e-3  # vs 'poly' (tests/test_kernels.py:100-101)
 SHIFT = (2.5, -1.5)  # (dx, dy) of the phase-5 pair, px
+RUNS = {"stream": "VideoPipeline.push (phase 4)",
+        "controller": "coarse_to_fine level_iters=2 (phase 5)"}
+PROFILE_WARMUP, PROFILE_FRAMES = 5, 40
 
 
 def log(msg: str) -> None:
@@ -260,11 +267,11 @@ def phase_slice(device, frames, size):
     plain = dataclasses.replace(
         fast, flow=dataclasses.replace(fast.flow, impl="torch", pyr_impl="poly", warp_impl="shift_sep")
     )
-    before = kernels.launch_counts()
+    kernels.reset_launch_counts()
     res_k, ms_k = run_stream(fast, frames, device)
-    counts = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+    counts = kernels.launch_counts()
     res_p, ms_p = run_stream(plain, frames, device)
-    if kernels.launch_counts() != {k: before[k] + counts[k] for k in counts}:
+    if kernels.launch_counts() != counts:
         raise AssertionError("the plain path launched a kernel")
 
     F = len(frames)
@@ -314,12 +321,12 @@ def phase_controller(device, size):
     img2 = torch.from_numpy(bilinear_shift(big, dy, dx, pad).astype(np.float32)).to(device)
     cfg = FlowConfig(mode="corrected", warp_clamp=CLAMP, warp_impl="shift_sep", level_iters=2,
                      pyr_impl="auto")
-    before = kernels.launch_counts()
+    kernels.reset_launch_counts()
     u, v = coarse_to_fine(img1, img2, 4, config=cfg)
     torch.cuda.synchronize()
-    counts = {k: n - before[k] for k, n in kernels.launch_counts().items()}
-    want = {"oft_lk": 1, "oft_pyrup_warp_lk": 3, "oft_warp_lk": 4}
-    if any(counts[k] != n for k, n in want.items()):
+    counts = kernels.launch_counts()
+    want = {"oft_pyrdown": 6, "oft_lk": 1, "oft_pyrup_warp_lk": 3, "oft_warp_lk": 4}
+    if counts != want:
         raise AssertionError(f"controller launch counts {counts}, want {want}")
     inner = (slice(8, -8), slice(8, -8))
     epe = torch.hypot(u[inner] - dx, v[inner] - dy)
@@ -327,6 +334,79 @@ def phase_controller(device, size):
     if not (bool(torch.isfinite(u).all()) and med < 0.2):
         raise AssertionError(f"controller median EPE {med:.3g} px (bar 0.2)")
     return {"launches": counts, "median_epe_px": med}
+
+
+def _busy_ms(intervals):
+    """Length of the union of (start, end) intervals, in ms (input µs)."""
+    busy, end = 0.0, -float("inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e3
+
+
+def phase_profile(device, size, warmup=PROFILE_WARMUP, n=PROFILE_FRAMES):
+    """Where the time of the kernel path goes. One pipeline takes `warmup`
+    frames, then `n` frames timed on the host clock (push + synchronize per
+    frame, no tracer), then `n` more under torch.profiler (CUDA activity
+    only), timed the same way. Device busy time is the union of the traced
+    device events; the idle share is 1 - busy / wall of the traced frames.
+    Writes the per-kernel totals to chiprun_out/profile_slice.json."""
+    import pathlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from optical_flow_tpu_torch.config import VideoConfig
+    from optical_flow_tpu_torch.pipeline.video import VideoPipeline
+
+    frames = synthetic_frames(np.random.RandomState(SEED + 2), warmup + 2 * n, FRAME_HW)
+    pipe = VideoPipeline(VideoConfig.fast(size=(size, size)), device=device)
+
+    def push_timed(batch):
+        ms = []
+        for frame in batch:
+            t0 = time.perf_counter()
+            pipe.push(frame)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    push_timed(frames[:warmup])
+    untraced = push_timed(frames[warmup : warmup + n])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced = push_timed(frames[warmup + n :])
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the trace holds no device events")
+    busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in events])
+    wall = float(np.sum(traced))
+    by_name = {}
+    for e in events:
+        r = by_name.setdefault(e.name, {"calls": 0, "ms": 0.0})
+        r["calls"] += 1
+        r["ms"] += (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])
+    summary = {
+        "frames": n,
+        "untraced_ms_per_frame_median": float(np.median(untraced)),
+        "untraced_ms_per_frame_mean": float(np.mean(untraced)),
+        "traced_ms_per_frame_median": float(np.median(traced)),
+        "traced_wall_ms": wall,
+        "device_busy_ms": busy,
+        "device_busy_ms_per_frame": busy / n,
+        "device_events_per_frame": len(events) / n,
+        "idle_share": 1.0 - busy / wall,
+        "top": [{"name": k[:60], "calls_per_frame": v["calls"] / n, "ms_per_frame": v["ms"] / n}
+                for k, v in top[:8]],
+    }
+    out = pathlib.Path(__file__).resolve().parent / "chiprun_out" / "profile_slice.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps({"summary": summary, "untraced_ms": untraced, "traced_ms": traced,
+                               "by_name": dict(top)}, indent=1))
+    return summary
 
 
 # ------------------------------------------------------------------- main
@@ -363,32 +443,38 @@ def main() -> int:
 
     rng = np.random.RandomState(SEED)
     frames = synthetic_frames(rng, FRAMES, FRAME_HW)
-    kernels.reset_launch_counts()
     sl = phase_slice(device, frames, SIZE)
     log(f"[4 slice] {json.dumps(sl)}")
     ctl = phase_controller(device, SIZE)
-    launches = kernels.launch_counts()
     log(f"[5 controller] {json.dumps(ctl)}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    log(f"[6 profile] {json.dumps(phase_profile(device, SIZE))}")
 
+    # Each count comes from one run, its counters reset just before it: the
+    # streaming VideoPipeline.push run (phase 4) drives K1-K3, and K4 runs
+    # on the controller path, coarse_to_fine with level_iters=2 (phase 5).
     meta = {
-        "lk": ("oft_lk", "optical_flow_tpu_torch/kernels/csrc/lk.cu",
+        "lk": ("oft_lk", "stream", "optical_flow_tpu_torch/kernels/csrc/lk.cu",
                "optical_flow_tpu/kernels/lk_kernel.py:173"),
-        "pyrdown": ("oft_pyrdown", "optical_flow_tpu_torch/kernels/csrc/pyrdown.cu",
+        "pyrdown": ("oft_pyrdown", "stream", "optical_flow_tpu_torch/kernels/csrc/pyrdown.cu",
                     "optical_flow_tpu/kernels/pyrdown_kernel.py:146"),
-        "pyrup_warp_lk": ("oft_pyrup_warp_lk", "optical_flow_tpu_torch/kernels/csrc/warp_lk.cu",
+        "pyrup_warp_lk": ("oft_pyrup_warp_lk", "stream",
+                          "optical_flow_tpu_torch/kernels/csrc/warp_lk.cu",
                           "optical_flow_tpu/kernels/warp_lk_kernel.py:667"),
-        "warp_lk": ("oft_warp_lk", "optical_flow_tpu_torch/kernels/csrc/warp_lk.cu",
+        "warp_lk": ("oft_warp_lk", "controller", "optical_flow_tpu_torch/kernels/csrc/warp_lk.cu",
                     "optical_flow_tpu/kernels/warp_lk_kernel.py:370"),
     }
+    runs = {"stream": sl["launches"], "controller": ctl["launches"]}
+    missing = [name for name, (entry, run, _, _) in meta.items() if runs[run][entry] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on their path: {missing}")
     rows = []
-    for name, (entry, source, replaces) in meta.items():
+    for name, (entry, run, source, replaces) in meta.items():
         r = per_kernel[name]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[entry], "max_abs_err": r["max_abs_err"],
-                     "ms": r["ms"], "plain_ms": r["plain_ms"]})
+                     "launches": runs[run][entry], "run": RUNS[run],
+                     "stream_launches": runs["stream"][entry],
+                     "controller_launches": runs["controller"][entry],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -3,9 +3,9 @@
 OpenCV's default filter border is BORDER_REFLECT_101 (``gfedcb|abcdefgh|
 gfedcba``, the edge pixel is not repeated), numpy's ``mode='reflect'``.
 ``torch.nn.functional.pad(mode='reflect')`` takes only 3-D and 4-D inputs
-and pads no wider than the axis, so the padding here is built from index
-selections on each axis instead: any leading shape, any width, with numpy's
-repeated reflection where a pad is wider than the axis.
+and pads no wider than the axis, so the padding here is built from
+single-line slices on each axis instead: any leading shape, any width, with
+numpy's repeated reflection where a pad is wider than the axis.
 """
 
 from __future__ import annotations
@@ -27,18 +27,10 @@ def _reflect_axis(x: torch.Tensor, dim: int, before: int, after: int) -> torch.T
     if before == 0 and after == 0:
         return x
     n = x.shape[dim]
-    if max(before, after) < n:
-        # one reflection: single-line slices and one cat, no index tensor
-        # (an index tensor built on the host costs a synchronous copy to a GPU)
-        parts = [x.narrow(dim, i, 1) for i in range(before, 0, -1)]
-        parts.append(x)
-        parts += [x.narrow(dim, n - 2 - i, 1) for i in range(after)]
-        return torch.cat(parts, dim=dim)
-    idx = torch.tensor(
-        [reflect101(i, n) for i in range(-before, n + after)],
-        dtype=torch.long, device=x.device,
-    )
-    return x.index_select(dim, idx)
+    parts = [x.narrow(dim, reflect101(i, n), 1) for i in range(-before, 0)]
+    parts.append(x)
+    parts += [x.narrow(dim, reflect101(n + i, n), 1) for i in range(after)]
+    return torch.cat(parts, dim=dim)
 
 
 def pad_last2(

@@ -5,9 +5,9 @@ Head: BGR -> gray first (resize, blur and BT.601 gray are all linear, so
 they commute), then the bicubic resize with the 9x9 Gaussian folded into it,
 as two block-banded float32 matmuls (``ResizeBlur``). Tail
 (``diff_features``): temporal diff, THRESH_TOZERO, Sobel x + y, dilate^n,
-erode^n. The matmuls are plain ``torch.matmul`` in float32; on a GPU they
-need ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default)
-to match the JAX package's ``Precision.HIGHEST``.
+erode^n. The matmuls are plain ``torch.matmul`` in float32, run at
+float32 matmul precision ``'highest'`` (no TF32) whatever the caller's
+global setting, to match the JAX package's ``Precision.HIGHEST``.
 
 The reference's uint8 saturating chain (``faithful_uint8=True``) is not
 ported yet (ROADMAP.md, Queue 1) and raises ``NotImplementedError``.
@@ -15,6 +15,7 @@ ported yet (ROADMAP.md, Queue 1) and raises ``NotImplementedError``.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from functools import lru_cache
 from typing import Tuple
 
@@ -119,6 +120,21 @@ def _banded_factors(n_in: int, n_out: int, ksize: int, sigma: float, tile: int):
     return W, tuple(starts)
 
 
+@contextmanager
+def _ieee_f32_matmul():
+    """float32 matmuls in full IEEE precision (no TF32 on cuBLAS, no bf16
+    on oneDNN) whatever the caller's global setting, restored on exit."""
+    backends = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    prev = [b.fp32_precision for b in backends]
+    for b in backends:
+        b.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        for b, p in zip(backends, prev):
+            b.fp32_precision = p
+
+
 class ResizeBlur(nn.Module):
     """Fused bicubic resize + Gaussian blur of ``(..., H, W)`` float planes
     of one input size, the banded factors held as buffers."""
@@ -136,7 +152,10 @@ class ResizeBlur(nn.Module):
         self.register_buffer("col_factors", torch.from_numpy(Wc))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.float32)
+        with _ieee_f32_matmul():
+            return self._banded(x.to(torch.float32))
+
+    def _banded(self, x: torch.Tensor) -> torch.Tensor:
         h_out, w_out = self.size
         n = self.row_factors.shape[2]
         rows = torch.cat(

@@ -38,7 +38,8 @@ def _pair(rng, shape, dtype):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize(
     "shape,pads",
-    [((5, 7), (2, 2, 2, 2)), ((2, 3, 4), (1, 0, 1, 0)), ((2, 2), (2, 2, 2, 2)), ((3, 5), (4, 4, 4, 4))],
+    [((5, 7), (2, 2, 2, 2)), ((2, 3, 4), (1, 0, 1, 0)), ((2, 2), (2, 2, 2, 2)), ((3, 5), (4, 4, 4, 4)),
+     ((4, 3), (7, 9, 11, 6))],
 )
 def test_pad_last2(shape, pads, dtype):
     rng = np.random.RandomState(0)

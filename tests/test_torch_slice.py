@@ -171,6 +171,55 @@ def test_video_stages_match_jax():
     np.testing.assert_allclose(tr.magnitude.numpy(), _np(jr.magnitude), rtol=1e-5, atol=1e-6)
 
 
+def _global_low_precision(style):
+    """Set reduced float32 matmul precision globally, the way a caller
+    might; returns the function that undoes it."""
+    if style == "legacy":
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("medium")
+        return lambda: torch.set_float32_matmul_precision(prev)
+    backends = ((torch.backends.cuda.matmul, "tf32"), (torch.backends.mkldnn.matmul, "bf16"))
+    prev = [b.fp32_precision for b, _ in backends]
+    for b, p in backends:
+        b.fp32_precision = p
+    return lambda: [setattr(b, "fp32_precision", p) for (b, _), p in zip(backends, prev)]
+
+
+def _check_resize_blur_ignores_global_precision(device, style):
+    frame = torch.from_numpy(_frames(1)[0]).to(device)
+    cfg = t_config.PreprocessConfig(size=(SIZE, SIZE), faithful_uint8=False)
+    want = t_pre.preprocess_frame(frame, cfg)
+    restore = _global_low_precision(style)
+    try:
+        state = (torch.backends.cuda.matmul.fp32_precision, torch.backends.mkldnn.matmul.fp32_precision)
+        got = t_pre.preprocess_frame(frame, cfg)
+        assert (torch.backends.cuda.matmul.fp32_precision,
+                torch.backends.mkldnn.matmul.fp32_precision) == state
+    finally:
+        restore()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("style", ["legacy", "per_backend"])
+def test_resize_blur_ignores_global_precision(style):
+    """ResizeBlur runs its matmuls at full float32 under a caller's global
+    TF32/bf16 setting and leaves that setting as it found it."""
+    _check_resize_blur_ignores_global_precision(torch.device("cpu"), style)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("style", ["legacy", "per_backend"])
+def test_resize_blur_ignores_global_precision_on_card(cuda_device, style):
+    _check_resize_blur_ignores_global_precision(cuda_device, style)
+
+
 def _assert_results_close(jres, tres):
     assert len(jres) == len(tres)
     for jr, tr in zip(jres, tres):
