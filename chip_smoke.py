@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's streaming 1080^2 flow path once on an NVIDIA GPU.
+"""Drive the PyTorch port's streaming 1080^2 flow path, unsharded and on a
+2x2 tile mesh, once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,7 +9,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
   2. build: compile the CUDA kernels from optical_flow_tpu_torch/kernels/csrc;
   3. each kernel against its plain PyTorch version at the shapes of the main
      path, float32, with its tolerance, timed with CUDA events in turns
-     (plain, kernel, kernel, plain) after warm-up;
+     (plain, kernel, kernel, plain) after warm-up; K5 (the tile mode of K3
+     and K4) on the 2x2 tile grid of the mesh path, also against the
+     full-frame kernel's region (max |err| must be 0), and P1 (the mesh
+     probe's copy kernel) on the probe's tiles;
   4. the slice: VideoPipeline(VideoConfig.fast()) on 12 synthetic 720x1280
      BGR frames, once through the kernels and once on the plain path, flows
      compared by quantiles and gesture votes within 1%, exact launch counts;
@@ -16,10 +20,16 @@ Phases, each printing one line (any failure raises and exits non-zero):
      on a 1080^2 textured pair with a known sub-pixel shift;
   6. where the time goes: the kernel path's device busy time, idle share
      and device time by kernel from one torch.profiler trace, written in
-     full to chiprun_out/profile_slice.json.
-Launch counters are reset just before the runs of phases 4 and 5 and read
-just after each. Then one JSON line with the kernels, and as the last line
-{"ok": true, "device": {...}}. It needs one CUDA device and no network.
+     full to chiprun_out/profile_slice.json;
+  7. the mesh slice: VideoPipeline(VideoConfig.fast(), mesh=2x2 tile grid on
+     the one card) on phase 4's frames, flows and votes equal to phase 4's
+     kernel path bit for bit, exact launch counts;
+  8. the mesh controller: sharded_coarse_to_fine with level_iters=2 on phase
+     5's pair, 3 levels, bit-identical to the unsharded controller, exact
+     launch counts.
+Launch counters are reset just before the runs of phases 4, 5, 7 and 8 and
+read just after each. Then one JSON line with the kernels, and as the last
+line {"ok": true, "device": {...}}. It needs one CUDA device and no network.
 """
 
 from __future__ import annotations
@@ -40,17 +50,40 @@ K1_SHAPES = [(135, 135)]
 K2_SHAPES = [(1080, 1080), (540, 540), (270, 270)]
 K3_SHAPES = [(270, 270), (540, 540), (1080, 1080)]
 K4_SHAPES = [(1080, 1080)]
+# the mesh path: a 2x2 tile grid; K5 runs K4 per tile at 1080^2 (level_iters=2)
+# and K3 per tile at 1080^2 and 540^2 (270^2 has odd 135^2 tiles: full frame)
+GRID = (2, 2)
+K5_WARP_SHAPES = [(1080, 1080)]
+K5_PYRUP_SHAPES = [(540, 540), (1080, 1080)]
+P1_TILE = (8, 128)  # the mesh probe's tile (parallel/vma_compat.py)
 CLAMP, C = 8.0, 4  # VideoConfig.fast(): warp_clamp=8 -> shift_sep max_disp 4
 ATOL_LK = 2e-5  # well-conditioned pixels (tests/test_warp_lk_kernel.py:61-106)
 ATOL_PYRDOWN = 2e-3  # vs 'poly' (tests/test_kernels.py:100-101)
 SHIFT = (2.5, -1.5)  # (dx, dy) of the phase-5 pair, px
 RUNS = {"stream": "VideoPipeline.push (phase 4)",
-        "controller": "coarse_to_fine level_iters=2 (phase 5)"}
+        "controller": "coarse_to_fine level_iters=2 (phase 5)",
+        "mesh_stream": "VideoPipeline.push, 2x2 tile mesh (phase 7)",
+        "mesh_controller": "sharded_coarse_to_fine level_iters=2, 2x2 tile mesh (phase 8)"}
+ENTRIES = ("oft_lk", "oft_pyrdown", "oft_pyrup_warp_lk", "oft_warp_lk",
+           "oft_pyrup_warp_lk_tile", "oft_warp_lk_tile", "oft_tile_copy")
 PROFILE_WARMUP, PROFILE_FRAMES = 5, 40
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def check_counts(what, counts, want):
+    """Raise unless the launch counts are exactly `want` (absent: 0)."""
+    want = {name: want.get(name, 0) for name in ENTRIES}
+    if counts != want:
+        raise AssertionError(f"{what} launch counts {counts} != {want}")
+
+
+def grid_mesh(device):
+    from optical_flow_tpu_torch.parallel.mesh import flow_mesh
+
+    return flow_mesh(1, *GRID, devices=[device] * (GRID[0] * GRID[1]))
 
 
 # ------------------------------------------------------------------ inputs
@@ -168,10 +201,15 @@ def phase_kernels(device, iters=20):
     from optical_flow_tpu_torch.kernels.warp_lk_kernel import (
         pyrup_warp_lk_cuda, pyrup_warp_lk_plain, warp_lk_cuda, warp_lk_plain,
     )
+    from optical_flow_tpu_torch.kernels.tile_copy_kernel import tile_copy_cuda, tile_copy_plain
+    from optical_flow_tpu_torch.kernels.warp_lk_kernel import pyrup_coarse_halo
     from optical_flow_tpu_torch.ops.pyramid import pyr_up_cols_first
     from optical_flow_tpu_torch.ops.warp import symmetric_warp
+    from optical_flow_tpu_torch.parallel.halo import exchange_halo, exchange_halo_pyrup
+    from optical_flow_tpu_torch.parallel.mesh import split
 
     rng = np.random.RandomState(SEED)
+    mesh = grid_mesh(device)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
@@ -181,15 +219,46 @@ def phase_kernels(device, iters=20):
 
     results = {}
 
-    def record(name, shape, err, ms, plain_ms, tol):
+    def record(name, shape, err, ms, plain_ms, tol, full_err=None):
         if not err <= tol:
             raise AssertionError(f"{name} at {shape}: max|err| {err:.3g} > {tol:g}")
+        if full_err is not None and not full_err == 0.0:
+            raise AssertionError(f"{name} at {shape}: max|err| {full_err:.3g} vs the full-frame "
+                                 "kernel's region, want 0")
         r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
-        log(f"  {name} {shape[0]}x{shape[1]}: max|err| {err:.3g} (tol {tol:g}), "
+        vs_full = "" if full_err is None else f", vs full frame {full_err:.3g}"
+        log(f"  {name} {shape[0]}x{shape[1]}: max|err| {err:.3g} (tol {tol:g}){vs_full}, "
             f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us")
+
+    def tile_calls(ext, shape):
+        """Each tile's (extended inputs, tile keywords, region of the frame)
+        on the 2x2 grid; the extended tiles are what the sharded wrappers
+        hand K5 (split + halo exchange)."""
+        h, w = shape[0] // GRID[0], shape[1] // GRID[1]
+        calls = []
+        for idx in np.ndindex(ext[0].shape):
+            r0, c0 = idx[1] * h, idx[2] * w
+            calls.append(([e[idx] for e in ext], dict(halo=C + 2, origin=(r0, c0), global_hw=shape),
+                          (slice(r0, r0 + h), slice(c0, c0 + w))))
+        return calls
+
+    def tile_errors(calls, kernel, plain, kw, full, mask):
+        """K5 per tile: max masked |kernel - plain| on the same extended
+        tile, and max |kernel - the full-frame kernel's region|."""
+        err = full_err = 0.0
+        for args, tile, reg in calls:
+            (u1, v1), (u0, v0) = kernel(*args, **kw, **tile), plain(*args, **kw, **tile)
+            torch.cuda.synchronize()
+            err = max(err, masked_err(u1, u0, mask[reg]), masked_err(v1, v0, mask[reg]))
+            full_err = max(full_err, float((u1 - full[0][reg]).abs().max()),
+                           float((v1 - full[1][reg]).abs().max()))
+        return err, full_err
+
+    def each_tile(fn, calls, kw):
+        return lambda: [fn(*args, **kw, **tile) for args, tile, _ in calls]
 
     for shape in K1_SHAPES:
         a, b = t(rng.rand(*shape)), t(rng.rand(*shape))
@@ -232,17 +301,49 @@ def phase_kernels(device, iters=20):
         ms, pms = time_pair(lambda: warp_lk_plain(a, b, u, v, **kw),
                             lambda: warp_lk_cuda(a, b, u, v, **kw), iters)
         record("warp_lk", shape, err, ms, pms, ATOL_LK)
+    for shape in K5_WARP_SHAPES:
+        a, b = t(rng.rand(*shape)), t(rng.rand(*shape))
+        u, v = (t(f) for f in smooth_flow(rng, shape, 2.0))
+        kw = dict(max_disp=C, clamp=CLAMP, negate=True)
+        full = warp_lk_cuda(a, b, u, v, **kw)
+        m = well_conditioned(*warped(a, b, -u.clamp(-CLAMP, CLAMP), -v.clamp(-CLAMP, CLAMP)))
+        calls = tile_calls([exchange_halo(split(x, mesh), C + 2, border="zero")
+                            for x in (a, b, u, v)], shape)
+        err, full_err = tile_errors(calls, warp_lk_cuda, warp_lk_plain, kw, full, m)
+        ms, pms = time_pair(each_tile(warp_lk_plain, calls, kw), each_tile(warp_lk_cuda, calls, kw),
+                            iters)
+        record("warp_lk_tile", shape, err, ms, pms, ATOL_LK, full_err)
+    for shape in K5_PYRUP_SHAPES:
+        H, W = shape
+        a, b = t(rng.rand(H, W)), t(rng.rand(H, W))
+        uc, vc = (t(f) for f in smooth_flow(rng, (H // 2, W // 2), 2.0))
+        kw = dict(max_disp=C, clamp=CLAMP)
+        full = pyrup_warp_lk_cuda(a, b, uc, vc, **kw)
+        upu, upv = 2.0 * pyr_up_cols_first(uc), 2.0 * pyr_up_cols_first(vc)
+        m = well_conditioned(*warped(a, b, -upu.clamp(-CLAMP, CLAMP), -upv.clamp(-CLAMP, CLAMP)))
+        ext = [exchange_halo(split(x, mesh), C + 2, border="zero") for x in (a, b)]
+        ext += [exchange_halo_pyrup(split(x, mesh), pyrup_coarse_halo(C), 2) for x in (uc, vc)]
+        calls = tile_calls(ext, shape)
+        err, full_err = tile_errors(calls, pyrup_warp_lk_cuda, pyrup_warp_lk_plain, kw, full, m)
+        ms, pms = time_pair(each_tile(pyrup_warp_lk_plain, calls, kw),
+                            each_tile(pyrup_warp_lk_cuda, calls, kw), iters)
+        record("pyrup_warp_lk_tile", shape, err, ms, pms, ATOL_LK, full_err)
+    x = t(rng.rand(*P1_TILE))
+    y1, y0 = tile_copy_cuda(x), tile_copy_plain(x)
+    torch.cuda.synchronize()
+    ms, pms = time_pair(lambda: tile_copy_plain(x), lambda: tile_copy_cuda(x), iters)
+    record("tile_copy", P1_TILE, float((y1 - y0).abs().max()), ms, pms, 0.0)
     torch.cuda.synchronize()
     return results
 
 
-def run_stream(config, frames, device, warmup=3):
+def run_stream(config, frames, device, warmup=3, mesh=None):
     """Push every frame; return (results, steady-state ms per frame)."""
     import torch
 
     from optical_flow_tpu_torch.pipeline.video import VideoPipeline
 
-    pipe = VideoPipeline(config, device=device)
+    pipe = VideoPipeline(config, device=device, mesh=mesh)
     results, ms = [], []
     for k, frame in enumerate(frames):
         t0 = time.perf_counter()
@@ -275,10 +376,8 @@ def phase_slice(device, frames, size):
         raise AssertionError("the plain path launched a kernel")
 
     F = len(frames)
-    want = {"oft_pyrdown": 3 * (F - 1), "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2),
-            "oft_warp_lk": 0}
-    if counts != want:
-        raise AssertionError(f"slice launch counts {counts} != {want}")
+    check_counts("slice", counts,
+                 {"oft_pyrdown": 3 * (F - 1), "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2)})
     if len(res_k) != F - 2 or len(res_p) != F - 2:
         raise AssertionError(f"expected {F - 2} results, got {len(res_k)} and {len(res_p)}")
     d, votes = [], []
@@ -303,15 +402,12 @@ def phase_slice(device, frames, size):
         "ms_per_frame_kernels_mean": float(np.mean(ms_k)),
         "ms_per_frame_plain_mean": float(np.mean(ms_p)),
     }
-    return out
+    return out, res_k
 
 
-def phase_controller(device, size):
+def shifted_pair(device, size):
+    """A textured size^2 pair, the second shifted by SHIFT (bilinear)."""
     import torch
-
-    from optical_flow_tpu_torch import kernels
-    from optical_flow_tpu_torch.config import FlowConfig
-    from optical_flow_tpu_torch.flow.coarse_to_fine import coarse_to_fine
 
     rng = np.random.RandomState(SEED + 1)
     pad = 16
@@ -319,21 +415,101 @@ def phase_controller(device, size):
     dx, dy = SHIFT
     img1 = torch.from_numpy(bilinear_shift(big, 0.0, 0.0, pad).astype(np.float32)).to(device)
     img2 = torch.from_numpy(bilinear_shift(big, dy, dx, pad).astype(np.float32)).to(device)
-    cfg = FlowConfig(mode="corrected", warp_clamp=CLAMP, warp_impl="shift_sep", level_iters=2,
-                     pyr_impl="auto")
+    return img1, img2
+
+
+def controller_config():
+    from optical_flow_tpu_torch.config import FlowConfig
+
+    return FlowConfig(mode="corrected", warp_clamp=CLAMP, warp_impl="shift_sep", level_iters=2,
+                      pyr_impl="auto")
+
+
+def median_epe(what, u, v):
+    import torch
+
+    inner = (slice(8, -8), slice(8, -8))
+    med = float(torch.hypot(u[inner] - SHIFT[0], v[inner] - SHIFT[1]).median())
+    if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(v).all()) and med < 0.2):
+        raise AssertionError(f"{what} median EPE {med:.3g} px (bar 0.2)")
+    return med
+
+
+def phase_controller(device, size):
+    import torch
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.flow.coarse_to_fine import coarse_to_fine
+
+    img1, img2 = shifted_pair(device, size)
     kernels.reset_launch_counts()
-    u, v = coarse_to_fine(img1, img2, 4, config=cfg)
+    u, v = coarse_to_fine(img1, img2, 4, config=controller_config())
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    want = {"oft_pyrdown": 6, "oft_lk": 1, "oft_pyrup_warp_lk": 3, "oft_warp_lk": 4}
-    if counts != want:
-        raise AssertionError(f"controller launch counts {counts}, want {want}")
-    inner = (slice(8, -8), slice(8, -8))
-    epe = torch.hypot(u[inner] - dx, v[inner] - dy)
-    med = float(epe.median())
-    if not (bool(torch.isfinite(u).all()) and med < 0.2):
-        raise AssertionError(f"controller median EPE {med:.3g} px (bar 0.2)")
-    return {"launches": counts, "median_epe_px": med}
+    check_counts("controller", counts,
+                 {"oft_pyrdown": 6, "oft_lk": 1, "oft_pyrup_warp_lk": 3, "oft_warp_lk": 4})
+    return {"launches": counts, "median_epe_px": median_epe("controller", u, v)}
+
+
+def phase_mesh_slice(device, frames, size, stream_results):
+    """Phase 4's frames through VideoPipeline(fast, mesh=2x2 tiles on the
+    card). Per frame pair: K2 three times (the new diff's pyramid), K1 once
+    (135^2, untileable), K3 full frame once (270^2: its 135^2 tiles are
+    odd), K3 tiled at 540^2 and 1080^2 (one launch per tile); P1 once per
+    tile at the mesh's first sharded call."""
+    import torch
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.config import VideoConfig
+
+    mesh = grid_mesh(device)
+    tiles = GRID[0] * GRID[1]
+    kernels.reset_launch_counts()
+    res, ms = run_stream(VideoConfig.fast(size=(size, size)), frames, device, mesh=mesh)
+    counts = kernels.launch_counts()
+    F = len(frames)
+    check_counts("mesh slice", counts,
+                 {"oft_pyrdown": 3 * (F - 1), "oft_lk": F - 2, "oft_pyrup_warp_lk": F - 2,
+                  "oft_pyrup_warp_lk_tile": 2 * tiles * (F - 2), "oft_tile_copy": tiles})
+    if len(res) != len(stream_results):
+        raise AssertionError(f"mesh slice gave {len(res)} results, phase 4 {len(stream_results)}")
+    votes = []
+    for rm, rk in zip(res, stream_results):
+        if not (torch.equal(rm.u, rk.u) and torch.equal(rm.v, rk.v)):
+            raise AssertionError("the mesh slice's flow differs from phase 4's kernel path")
+        a, b = int(rm.gesture.votes), int(rk.gesture.votes)
+        if a != b or bool(rm.gesture.detected) != bool(rk.gesture.detected):
+            raise AssertionError(f"the mesh slice's votes {a} differ from phase 4's {b}")
+        votes.append(a)
+    return {"frames": F, "launches": counts, "votes": votes,
+            "ms_per_frame_median": float(np.median(ms)), "ms_per_frame_mean": float(np.mean(ms))}
+
+
+def phase_mesh_controller(device, size):
+    """sharded_coarse_to_fine on phase 5's pair, 3 levels (1080, 540, 270),
+    level_iters=2, on a new 2x2 mesh: every level tiles, so K1 runs per tile
+    at 270^2, K3 per tile at 540^2 and 1080^2, K4 per tile at all three."""
+    import torch
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.flow.coarse_to_fine import coarse_to_fine
+    from optical_flow_tpu_torch.parallel import sharded_coarse_to_fine
+
+    img1, img2 = shifted_pair(device, size)
+    cfg = controller_config()
+    u0, v0 = coarse_to_fine(img1, img2, 3, config=cfg)
+    mesh = grid_mesh(device)
+    tiles = GRID[0] * GRID[1]
+    kernels.reset_launch_counts()
+    u, v = sharded_coarse_to_fine(img1, img2, mesh, 3, config=cfg)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_counts("mesh controller", counts,
+                 {"oft_pyrdown": 4, "oft_lk": tiles, "oft_pyrup_warp_lk_tile": 2 * tiles,
+                  "oft_warp_lk_tile": 3 * tiles, "oft_tile_copy": tiles})
+    if not (torch.equal(u, u0) and torch.equal(v, v0)):
+        raise AssertionError("the mesh controller differs from the unsharded controller")
+    return {"launches": counts, "median_epe_px": median_epe("mesh controller", u, v)}
 
 
 def _busy_ms(intervals):
@@ -443,15 +619,22 @@ def main() -> int:
 
     rng = np.random.RandomState(SEED)
     frames = synthetic_frames(rng, FRAMES, FRAME_HW)
-    sl = phase_slice(device, frames, SIZE)
+    sl, stream_results = phase_slice(device, frames, SIZE)
     log(f"[4 slice] {json.dumps(sl)}")
     ctl = phase_controller(device, SIZE)
     log(f"[5 controller] {json.dumps(ctl)}")
     log(f"[6 profile] {json.dumps(phase_profile(device, SIZE))}")
+    msl = phase_mesh_slice(device, frames, SIZE, stream_results)
+    log(f"[7 mesh slice] {json.dumps(msl)}")
+    del stream_results
+    mctl = phase_mesh_controller(device, SIZE)
+    log(f"[8 mesh controller] {json.dumps(mctl)}")
 
     # Each count comes from one run, its counters reset just before it: the
-    # streaming VideoPipeline.push run (phase 4) drives K1-K3, and K4 runs
-    # on the controller path, coarse_to_fine with level_iters=2 (phase 5).
+    # streaming VideoPipeline.push run (phase 4) drives K1-K3, K4 runs on the
+    # controller path, coarse_to_fine with level_iters=2 (phase 5), K5's K3
+    # mode and P1 on the mesh stream (phase 7) and K5's K4 mode on the mesh
+    # controller with level_iters=2 (phase 8).
     meta = {
         "lk": ("oft_lk", "stream", "optical_flow_tpu_torch/kernels/csrc/lk.cu",
                "optical_flow_tpu/kernels/lk_kernel.py:173"),
@@ -462,8 +645,18 @@ def main() -> int:
                           "optical_flow_tpu/kernels/warp_lk_kernel.py:667"),
         "warp_lk": ("oft_warp_lk", "controller", "optical_flow_tpu_torch/kernels/csrc/warp_lk.cu",
                     "optical_flow_tpu/kernels/warp_lk_kernel.py:370"),
+        "pyrup_warp_lk_tile": ("oft_pyrup_warp_lk_tile", "mesh_stream",
+                               "optical_flow_tpu_torch/kernels/csrc/warp_lk.cu",
+                               "optical_flow_tpu/kernels/warp_lk_kernel.py:667"),
+        "warp_lk_tile": ("oft_warp_lk_tile", "mesh_controller",
+                         "optical_flow_tpu_torch/kernels/csrc/warp_lk.cu",
+                         "optical_flow_tpu/kernels/warp_lk_kernel.py:370"),
+        "tile_copy": ("oft_tile_copy", "mesh_stream",
+                      "optical_flow_tpu_torch/kernels/csrc/tile_copy.cu",
+                      "optical_flow_tpu/parallel/vma_compat.py:44"),
     }
-    runs = {"stream": sl["launches"], "controller": ctl["launches"]}
+    runs = {"stream": sl["launches"], "controller": ctl["launches"],
+            "mesh_stream": msl["launches"], "mesh_controller": mctl["launches"]}
     missing = [name for name, (entry, run, _, _) in meta.items() if runs[run][entry] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")
@@ -472,8 +665,7 @@ def main() -> int:
         r = per_kernel[name]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": runs[run][entry], "run": RUNS[run],
-                     "stream_launches": runs["stream"][entry],
-                     "controller_launches": runs["controller"][entry],
+                     "launches_by_run": {k: c[entry] for k, c in runs.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,10 +8,11 @@ JAX.
 
 Layer map:
   ops/        dense tensor ops with OpenCV-faithful numerics
-  kernels/    K1-K4 CUDA kernels (csrc/) and their plain PyTorch versions
+  kernels/    K1-K5 and P1 CUDA kernels (csrc/) and their plain PyTorch versions
   flow/       single-level LK and the coarse-to-fine controller
+  parallel/   a grid of devices, halo exchange and the mesh-sharded controller
   pipeline/   preprocess -> pyramidal flow -> gesture video pipeline
-  convert.py  configurations and streaming state from the JAX package
+  convert.py  configurations, streaming state and a mesh's shape from the JAX package
 """
 
 from optical_flow_tpu_torch.config import (

@@ -1,6 +1,6 @@
 """Configuration dataclasses (PyTorch port of optical_flow_tpu/config.py).
 
-Same four dataclasses, fields and defaults as the JAX package, so a
+Same dataclasses, fields and defaults as the JAX package, so a
 configuration reads the same in both. The implementation selectors take
 the port's values:
 
@@ -97,3 +97,17 @@ class VideoConfig:
     faithful_prev_diff: bool = True
     # Frames processed together as a batch.
     batch: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout for spatial tiling and frame parallelism
+    (parallel/mesh.py): rows/cols tile each image, frames splits a batch
+    of frame pairs."""
+
+    rows: int = 1
+    cols: int = 1
+    frames: int = 1
+    axis_rows: str = "rows"
+    axis_cols: str = "cols"
+    axis_frames: str = "frames"

@@ -1,8 +1,9 @@
 """Carry configurations and streaming state across from the JAX package.
 
 The functions read the JAX objects by field name and import nothing of JAX,
-so they take the dataclasses of ``optical_flow_tpu.config`` and the numpy
-dict of ``optical_flow_tpu.pipeline.VideoPipeline.state()`` as they are.
+so they take the dataclasses of ``optical_flow_tpu.config``, the numpy
+dict of ``optical_flow_tpu.pipeline.VideoPipeline.state()`` and a
+``jax.sharding.Mesh`` (through its ``shape``) as they are.
 The system has no learned weights; its carried state is that streaming
 state, and the operator matrices are rebuilt by the same numpy code.
 """
@@ -17,9 +18,11 @@ import torch
 from optical_flow_tpu_torch.config import (
     FlowConfig,
     GestureConfig,
+    MeshConfig,
     PreprocessConfig,
     VideoConfig,
 )
+from optical_flow_tpu_torch.parallel.mesh import AXIS_COLS, AXIS_FRAMES, AXIS_ROWS, FlowMesh, flow_mesh
 
 _IMPL = {"jnp": "torch", "pallas": "cuda", "auto": "auto"}
 _PYR_IMPL = {"poly": "poly", "pallas": "auto", "auto": "auto"}
@@ -68,3 +71,16 @@ def pipeline_state_from_jax(state: dict, device="cpu") -> dict:
         "prev_diff": t(state["prev_diff"]),
         "frame_idx": int(state["frame_idx"]),
     }
+
+
+def mesh_config_from_jax(cfg) -> MeshConfig:
+    """JAX MeshConfig -> port MeshConfig (field by field)."""
+    return MeshConfig(**_fields(MeshConfig, cfg))
+
+
+def flow_mesh_from_jax(mesh, devices) -> FlowMesh:
+    """A FlowMesh of the JAX mesh's (frames, rows, cols) shape over the
+    port's ``devices`` (a JAX device is no torch device; repeats are
+    allowed, as in ``flow_mesh``)."""
+    shape = dict(mesh.shape)
+    return flow_mesh(shape[AXIS_FRAMES], shape[AXIS_ROWS], shape[AXIS_COLS], devices=devices)

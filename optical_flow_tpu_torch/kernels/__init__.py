@@ -1,10 +1,13 @@
 """Hand-written CUDA kernels for the H100 (sm_90a), one per TPU kernel on
-the streaming flow path, each with its plain PyTorch version:
+the flow paths, each with its plain PyTorch version:
 
   K1  lk_kernel.lucas_kanade_cuda         csrc/lk.cu
   K2  pyrdown_kernel.pyr_down_cuda        csrc/pyrdown.cu
   K3  warp_lk_kernel.pyrup_warp_lk_cuda   csrc/warp_lk.cu
   K4  warp_lk_kernel.warp_lk_cuda         csrc/warp_lk.cu
+  K5  the tile mode of K3/K4 (halo=, origin=, global_hw=; entry points
+      oft_pyrup_warp_lk_tile, oft_warp_lk_tile), csrc/warp_lk.cu
+  P1  tile_copy_kernel.tile_copy_cuda     csrc/tile_copy.cu (the mesh probe)
 
 A wrapper given a CUDA tensor launches its kernel or raises; given a CPU
 tensor it runs the plain version. Launches are counted in
@@ -16,6 +19,7 @@ from typing import Dict
 from optical_flow_tpu_torch.kernels import _lib
 from optical_flow_tpu_torch.kernels.lk_kernel import lucas_kanade_cuda
 from optical_flow_tpu_torch.kernels.pyrdown_kernel import pyr_down_cuda
+from optical_flow_tpu_torch.kernels.tile_copy_kernel import tile_copy_cuda
 from optical_flow_tpu_torch.kernels.warp_lk_kernel import pyrup_warp_lk_cuda, warp_lk_cuda
 
 
@@ -34,5 +38,6 @@ __all__ = [
     "pyr_down_cuda",
     "pyrup_warp_lk_cuda",
     "reset_launch_counts",
+    "tile_copy_cuda",
     "warp_lk_cuda",
 ]

@@ -1,9 +1,10 @@
 """Build, load and launch the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, loaded with ``ctypes``. The
-build happens at the first launch (never at import), into ``build/kernels/``
-at the root of the checkout, under a name that hashes the sources and flags,
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and linked into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+happens at the first launch (never at import), into ``build/kernels/`` at
+the root of the checkout, under a name that hashes the sources and flags,
 so an edited source is rebuilt and an unchanged one is reused.
 
 Flags: ``-O3 -fmad=false`` and no ``--use_fast_math``. Without contraction
@@ -29,20 +30,24 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("lk.cu", "pyrdown.cu", "warp_lk.cu")
+SOURCES = ("lk.cu", "pyrdown.cu", "warp_lk.cu", "tile_copy.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # Every entry point ends with the stream (a cudaStream_t passed as a pointer).
 _ARGTYPES = {
     "oft_lk": [_P, _P, _P, _P, _I, _I, _I, _P],
     "oft_pyrdown": [_P, _P, _I, _I, _I, _P],
     "oft_warp_lk": [_P] * 6 + [_I, _I, _I, _I, _F, _F, _P],
     "oft_pyrup_warp_lk": [_P] * 6 + [_I, _I, _I, _I, _F, _P],
+    # K5: ... halo, row0, col0, Hg, Wg (K3 also the coarse row halo after halo)
+    "oft_warp_lk_tile": [_P] * 6 + [_I, _I, _I, _I, _F, _F] + [_I] * 5 + [_P],
+    "oft_pyrup_warp_lk_tile": [_P] * 6 + [_I, _I, _I, _I, _F] + [_I] * 6 + [_P],
+    "oft_tile_copy": [_P, _P, _L, _P],
 }
 
 # Launch counts by C entry point: incremented only where a kernel launched.
@@ -83,12 +88,31 @@ def build() -> Path:
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+    objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
+    compiles = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)] for s, o in zip(SOURCES, objs)
+    ]
+    procs = []
+    try:
+        for c in compiles:
+            procs.append(subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+        # communicate() on each in turn: the others keep compiling meanwhile
+        results = [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(compiles, procs)]
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        if all(rc == 0 for _, _, rc in results):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, proc.stdout + proc.stderr, proc.returncode))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for o in objs:
+            o.unlink(missing_ok=True)
+    for cmd, output, rc in results:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{output}")
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     return out
 

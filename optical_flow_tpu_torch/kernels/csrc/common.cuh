@@ -69,9 +69,10 @@ __device__ __forceinline__ void lk_products(const float* s1, const float* s2, fl
   }
 }
 
-// The LK tail at tile position (ty, tx), global (gy, gx): 3x3 window sums
-// (rows first, then columns, as ops/window.sum3x3_interior), the Cramer
-// solve with det == 0 -> 0 (cv::divide), and the global 1-px ring zeroed.
+// The LK tail at tile position (ty, tx), global (gy, gx) in an H x W frame:
+// 3x3 window sums (rows first, then columns, as
+// ops/window.sum3x3_interior), the Cramer solve with det == 0 -> 0
+// (cv::divide), and the frame's 1-px ring zeroed.
 __device__ __forceinline__ void lk_solve(const float* prod, int ty, int tx, int gy, int gx,
                                          int H, int W, float* u, float* v) {
   float s[5];
@@ -97,17 +98,19 @@ __device__ __forceinline__ void lk_solve(const float* prod, int ty, int tx, int 
 // row r, column c, for the quantized half-flow qx read at (r, c). sgn = +1
 // samples at c + d (image 1), -1 at c - d (image 2). Only the two taps
 // k0 = floor(qx) and k0 + 1 carry weight, so this equals the 2C+1-tap
-// shift_sep sum exactly (the other taps add exact zeros). Outside the
-// image the source is 0.
-__device__ __forceinline__ float shift_row(const float* img, float qx, int r, int c, int sgn,
-                                           int H, int W) {
-  if (r < 0 || r >= H) return 0.0f;
+// shift_sep sum exactly (the other taps add exact zeros). `img` points at
+// pixel (0, 0) with row stride `ld`; the readable region is rows
+// [lo, Hh) x columns [lo, Wh) (a full frame: lo = 0; a halo-extended tile:
+// lo = -halo) and the source is 0 outside it.
+__device__ __forceinline__ float shift_row(const float* img, int ld, float qx, int r, int c,
+                                           int sgn, int lo, int Hh, int Wh) {
+  if (r < lo || r >= Hh) return 0.0f;
   const float kf = floorf(qx);
   const int k = (int)kf;
   const float f = qx - kf;
   const int c0 = c + sgn * k, c1 = c + sgn * (k + 1);
-  const float v0 = (c0 >= 0 && c0 < W) ? img[r * W + c0] : 0.0f;
-  const float v1 = (c1 >= 0 && c1 < W) ? img[r * W + c1] : 0.0f;
+  const float v0 = (c0 >= lo && c0 < Wh) ? img[r * ld + c0] : 0.0f;
+  const float v1 = (c1 >= lo && c1 < Wh) ? img[r * ld + c1] : 0.0f;
   return (1.0f - f) * v0 + f * v1;
 }
 

@@ -40,12 +40,18 @@ def _gather2d(src, yy, xx):
     return torch.where(ok, vals, torch.zeros((), dtype=src.dtype, device=src.device))
 
 
-def remap_bilinear(src, map_x, map_y, *, quantize: bool = True):
+def remap_bilinear(src, map_x, map_y, *, quantize: bool = True, index_offset=(0, 0)):
     """cv2.remap(src, map_x, map_y, INTER_LINEAR, BORDER_CONSTANT 0).
 
     src: (..., H, W); map_x/map_y: (..., H2, W2) float32 sample
     coordinates. Integer sources are interpolated in float32 and rounded
     and saturated back, like cv2.
+
+    index_offset (dy, dx) is added to the integer tap indices after the
+    coordinates are quantized: the mesh-tiled gather warp
+    (parallel/sharded_warp.py) builds its maps in global coordinates and
+    reads a halo-extended tile, and shifting the indices rather than the
+    float maps keeps every fraction bit-identical to the global remap.
     """
     out_dtype = src.dtype
     is_int = not torch.is_floating_point(src)
@@ -64,6 +70,8 @@ def remap_bilinear(src, map_x, map_y, *, quantize: bool = True):
         iy = torch.floor(map_y).to(torch.int32)
         fx = (map_x - ix).to(cdt)
         fy = (map_y - iy).to(cdt)
+    iy = iy + int(index_offset[0])
+    ix = ix + int(index_offset[1])
     v00 = _gather2d(src, iy, ix)
     v01 = _gather2d(src, iy, ix + 1)
     v10 = _gather2d(src, iy + 1, ix)
@@ -117,6 +125,20 @@ def _shift_sep_core(planes, signs, dx_ext, dy, max_disp: int):
     return outs
 
 
+def symmetric_shift_sep_sum(p1, p2, dx_ext, dy, max_disp: int):
+    """Both separable shift warps with shared hat weights: ``p1`` sampled at
+    +d, ``p2`` at -d. The one copy the global warp and the mesh-tiled warp
+    (parallel/sharded_warp.py) share, so the two stay bit-identical.
+
+    p1/p2: frames zero-padded (global) or halo-extended (tiled) by
+    M = max_disp on both spatial axes; dx_ext: the quantized x-displacement
+    on the extended rows (H + 2M, W), 0 where the source rows are outside
+    the frame; dy: the y-displacement (H, W).
+    """
+    o1, o2 = _shift_sep_core((p1, p2), (1, -1), dx_ext, dy, max_disp)
+    return o1, o2
+
+
 def symmetric_warp_shift_sep(
     img1, img2, hx, hy, max_disp: int, *, quantize: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -128,8 +150,7 @@ def symmetric_warp_shift_sep(
     p1 = pad_last2(img1, C, C, C, C, mode="constant")
     p2 = pad_last2(img2, C, C, C, C, mode="constant")
     dx_ext = pad_last2(dx, C, C, 0, 0, mode="constant")
-    o1, o2 = _shift_sep_core((p1, p2), (1, -1), dx_ext, dy, C)
-    return o1, o2
+    return symmetric_shift_sep_sum(p1, p2, dx_ext, dy, C)
 
 
 def symmetric_warp(

@@ -19,3 +19,12 @@ def sum3x3_interior(x: torch.Tensor) -> torch.Tensor:
     s = r[..., :, :-2] + r[..., :, 1:-1] + r[..., :, 2:]
     out[..., 1:-1, 1:-1] = s
     return out
+
+
+def interior_mask(h: int, w: int, row0: int, col0: int, H: int, W: int, device=None) -> torch.Tensor:
+    """(h, w) bool: True where the tile whose first pixel is (row0, col0)
+    of an H x W frame lies off the frame's 1-px border ring, the ring LK
+    leaves at 0 (``sum3x3_interior``)."""
+    ys = torch.arange(row0, row0 + h, device=device)[:, None]
+    xs = torch.arange(col0, col0 + w, device=device)[None, :]
+    return (ys > 0) & (ys < H - 1) & (xs > 0) & (xs < W - 1)

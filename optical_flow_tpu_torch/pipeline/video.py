@@ -7,6 +7,11 @@ frame's Gaussian pyramid is built once and reused for its two pairs
 ((t-1, t) and (t, t+1)). Batched: ``run_batched`` solves N-2 pairs from N
 frames in one pass. Everything runs on the pipeline's ``device``; the
 kernels are used there by the config's ``impl``/``pyr_impl`` choices.
+
+With a ``mesh`` (parallel/mesh.py) every flow step goes through the
+mesh-sharded controller (parallel/sharded_flow.py), where the JAX
+pipeline sends it; the pipeline's device is the mesh's home device, where
+preprocessing, the pyramids and the gesture run.
 """
 
 from __future__ import annotations
@@ -22,6 +27,12 @@ from optical_flow_tpu_torch.flow.coarse_to_fine import (
     coarse_to_fine_with_images,
 )
 from optical_flow_tpu_torch.ops.pyramid import gaussian_pyramid, max_pyramid_levels
+from optical_flow_tpu_torch.parallel.mesh import canonical_device
+from optical_flow_tpu_torch.parallel.sharded_flow import (
+    sharded_coarse_to_fine,
+    sharded_coarse_to_fine_pyramids,
+    sharded_coarse_to_fine_with_images,
+)
 from optical_flow_tpu_torch.pipeline.gesture import GestureResult, detect_gesture
 from optical_flow_tpu_torch.pipeline.preprocess import (
     ResizeBlur,
@@ -37,7 +48,8 @@ class FrameResult(NamedTuple):
 
 
 class VideoPipeline:
-    """Gesture tracking over a frame stream on one device.
+    """Gesture tracking over a frame stream on one device, or with the flow
+    tiled over a mesh whose home device is ``device``.
 
     Usage:
         pipe = VideoPipeline(VideoConfig.fast(), device="cuda")
@@ -45,14 +57,19 @@ class VideoPipeline:
             if bool(result.gesture.detected): ...
     """
 
-    def __init__(self, config: VideoConfig = VideoConfig(), device="cpu"):
+    def __init__(self, config: VideoConfig = VideoConfig(), device="cpu", mesh=None):
         if config.preprocess.faithful_uint8:
             raise NotImplementedError(
                 "the faithful uint8 preprocess chain is not ported yet (ROADMAP.md, "
                 "Queue 1); use VideoConfig.fast() or faithful_uint8=False"
             )
         self.config = config
-        self.device = torch.device(device)
+        self.device = canonical_device(device)
+        if mesh is not None and mesh.home != self.device:
+            raise ValueError(
+                f"the pipeline's device {self.device} is not the mesh's home device {mesh.home}"
+            )
+        self.mesh = mesh
         # one resize+blur operator (its factors on the device) per input size
         self._resizers: Dict[Tuple[int, int], ResizeBlur] = {}
         self._reuse_pyramids = not config.faithful_prev_diff
@@ -114,15 +131,26 @@ class VideoPipeline:
         return FrameResult(u, v, detect_gesture(u, v, self.config.gesture))
 
     def _flow_step(self, prev_diff, diff):
-        u, v, _, warped_diff = coarse_to_fine_with_images(
-            prev_diff, diff, max_pyramid_levels(diff.shape), config=self.config.flow,
-            _need_images=self.config.faithful_prev_diff,
-        )
-        next_prev = warped_diff if self.config.faithful_prev_diff else diff
+        levels = max_pyramid_levels(diff.shape)
+        need = self.config.faithful_prev_diff
+        if self.mesh is not None:
+            u, v, _, warped_diff = sharded_coarse_to_fine_with_images(
+                prev_diff, diff, self.mesh, levels, config=self.config.flow, _need_images=need,
+            )
+        else:
+            u, v, _, warped_diff = coarse_to_fine_with_images(
+                prev_diff, diff, levels, config=self.config.flow, _need_images=need,
+            )
+        next_prev = warped_diff if need else diff
         return self._result(u, v), next_prev
 
     def _flow_step_pyr(self, prev_pyr, pyr):
-        u, v, _, _ = coarse_to_fine_pyramids(prev_pyr, pyr, config=self.config.flow)
+        if self.mesh is not None:
+            u, v, _, _ = sharded_coarse_to_fine_pyramids(
+                prev_pyr, pyr, self.mesh, config=self.config.flow
+            )
+        else:
+            u, v, _, _ = coarse_to_fine_pyramids(prev_pyr, pyr, config=self.config.flow)
         return self._result(u, v)
 
     # --- host loops -----------------------------------------------------------
@@ -170,6 +198,12 @@ class VideoPipeline:
             )
         grays = self._preprocess(frames)
         diffs = self._diff(grays[1:], grays[:-1])
+        if self.mesh is not None:
+            u, v = sharded_coarse_to_fine(
+                diffs[:-1], diffs[1:], self.mesh, max_pyramid_levels(diffs.shape),
+                config=self.config.flow,
+            )
+            return self._result(u, v)
         pyr = self._build_pyr(diffs)
         prev = tuple(p[:-1] for p in pyr)
         cur = tuple(p[1:] for p in pyr)

@@ -26,6 +26,7 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "import optical_flow_tpu_torch, optical_flow_tpu_torch.convert\n"
         "import optical_flow_tpu_torch.kernels, optical_flow_tpu_torch.pipeline\n"
+        "import optical_flow_tpu_torch.parallel\n"
         "from optical_flow_tpu_torch.pipeline.video import VideoPipeline\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'optical_flow_tpu' or m.startswith('optical_flow_tpu.'))\n"
