@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's streaming 1080^2 flow path, unsharded and on a
-2x2 tile mesh, once on an NVIDIA GPU.
+"""Drive the PyTorch port's streaming 1080^2 flow paths (the fast preset,
+unsharded and on a 2x2 tile mesh, and the reference-parity default
+configuration) once on an NVIDIA GPU, and run the probes S2-S4.
 
     python3 chip_smoke.py
 
@@ -9,10 +10,11 @@ Phases, each printing one line (any failure raises and exits non-zero):
   2. build: compile the CUDA kernels from optical_flow_tpu_torch/kernels/csrc;
   3. each kernel against its plain PyTorch version at the shapes of the main
      path, float32, with its tolerance, timed with CUDA events in turns
-     (plain, kernel, kernel, plain) after warm-up; K5 (the tile mode of K3
-     and K4) on the 2x2 tile grid of the mesh path, also against the
-     full-frame kernel's region (max |err| must be 0), and P1 (the mesh
-     probe's copy kernel) on the probe's tiles;
+     (plain, kernel, kernel, plain) after warm-up, and the one-call kernels
+     (K1-K4, S1) also by their device time on use-once inputs; K5 (the
+     tile mode of K3 and K4) on the 2x2 tile grid of the mesh path, also
+     against the full-frame kernel's region (max |err| must be 0), and P1
+     (the mesh probe's copy kernel) on the probe's tiles;
   4. the slice: VideoPipeline(VideoConfig.fast()) on 12 synthetic 720x1280
      BGR frames, once through the kernels and once on the plain path, flows
      compared by quantiles and gesture votes within 1%, exact launch counts;
@@ -26,10 +28,29 @@ Phases, each printing one line (any failure raises and exits non-zero):
      kernel path bit for bit, exact launch counts;
   8. the mesh controller: sharded_coarse_to_fine with level_iters=2 on phase
      5's pair, 3 levels, bit-identical to the unsharded controller, exact
-     launch counts.
-Launch counters are reset just before the runs of phases 4, 5, 7 and 8 and
-read just after each. Then one JSON line with the kernels, and as the last
-line {"ok": true, "device": {...}}. It needs one CUDA device and no network.
+     launch counts;
+  9. the reference-parity slice: VideoPipeline(VideoConfig()) (faithful
+     uint8 preprocess, reference mode, gather warp, warped diff fed back) on
+     phase 4's frames, once through the kernels (K1 at all four levels, S1
+     between them) and once with FlowConfig(impl='torch'), flows and votes
+     compared, exact launch counts; the card's uint8 gray against the CPU's;
+     then phase 6's profile of the kernel path in this configuration
+     (chiprun_out/profile_reference.json);
+ 10. the probes S2-S4 on use-once inputs, device time of back-to-back
+     launches (utils/profiling.time_use_once), each against its plain
+     version bit for bit, with the copy and elementwise rates they measure
+     at their own shapes; then the copy rate (S2) and float32 elementwise
+     rate (S4) that the card sustains at sizes that fill it many times over.
+Phase 3 also holds S1 at the three upsamples of a 1080^2 frame and K1 at
+every level of the reference path. Launch counters are reset just before
+the runs of phases 4, 5, 7, 8, 9 and 10 and read just after each. Then one
+JSON line with the kernels (each with its least time on the card, from
+utils/profiling's byte and operation model against the published H100
+peaks, its time at the rates phase 10 sustained, its device time on
+use-once inputs where measured, and, where one PyTorch call computes the
+same function, that call's time), and as the
+last line {"ok": true, "device": {...}}. It needs one CUDA device and no
+network.
 """
 
 from __future__ import annotations
@@ -46,10 +67,11 @@ FRAMES = 12
 FRAME_HW = (720, 1280)
 SIZE = 1080
 # main-path shapes per 1080^2 frame (4 levels: 1080, 540, 270, 135)
-K1_SHAPES = [(135, 135)]
+K1_SHAPES = [(135, 135), (270, 270), (540, 540), (1080, 1080)]  # 135^2 fast, all: reference
 K2_SHAPES = [(1080, 1080), (540, 540), (270, 270)]
 K3_SHAPES = [(270, 270), (540, 540), (1080, 1080)]
 K4_SHAPES = [(1080, 1080)]
+S1_SHAPES = [(135, 135), (270, 270), (540, 540)]  # reference mode's coarse flows, upsampled x2
 # the mesh path: a 2x2 tile grid; K5 runs K4 per tile at 1080^2 (level_iters=2)
 # and K3 per tile at 1080^2 and 540^2 (270^2 has odd 135^2 tiles: full frame)
 GRID = (2, 2)
@@ -63,10 +85,17 @@ SHIFT = (2.5, -1.5)  # (dx, dy) of the phase-5 pair, px
 RUNS = {"stream": "VideoPipeline.push (phase 4)",
         "controller": "coarse_to_fine level_iters=2 (phase 5)",
         "mesh_stream": "VideoPipeline.push, 2x2 tile mesh (phase 7)",
-        "mesh_controller": "sharded_coarse_to_fine level_iters=2, 2x2 tile mesh (phase 8)"}
-ENTRIES = ("oft_lk", "oft_pyrdown", "oft_pyrup_warp_lk", "oft_warp_lk",
-           "oft_pyrup_warp_lk_tile", "oft_warp_lk_tile", "oft_tile_copy")
+        "mesh_controller": "sharded_coarse_to_fine level_iters=2, 2x2 tile mesh (phase 8)",
+        "reference": "reference stream (phase 9)", "probes": "probes (phase 10)"}
 PROFILE_WARMUP, PROFILE_FRAMES = 5, 40
+REFERENCE_PROFILE_FRAMES = 20
+USE_ONCE_SETS = 30  # timed calls of a kernel on fresh inputs (device time)
+# phase 10's sustained rates: S2's column interleave and S4's float32 chain at
+# sizes that fill the card many times over, on fresh inputs far beyond its L2
+SUSTAINED_COPY_HW = (8192, 4096)  # 512 MiB moved a call
+SUSTAINED_CHAIN = (1 << 23, 1024)  # elements, steps: 17.2 G operations a call
+SUSTAINED_SETS = 4
+FLOW_RANGES = [(0.0, 1.0)] * 2 + [(-2.0, 2.0)] * 2  # K3/K4 timing inputs: frames, then flows
 
 
 def log(msg: str) -> None:
@@ -75,7 +104,7 @@ def log(msg: str) -> None:
 
 def check_counts(what, counts, want):
     """Raise unless the launch counts are exactly `want` (absent: 0)."""
-    want = {name: want.get(name, 0) for name in ENTRIES}
+    want = {name: want.get(name, 0) for name in counts}
     if counts != want:
         raise AssertionError(f"{what} launch counts {counts} != {want}")
 
@@ -192,8 +221,15 @@ def time_pair(plain, kernel, iters):
 
 def phase_kernels(device, iters=20):
     """Each kernel vs its plain version at the main-path shapes. Returns
-    {name: {"max_abs_err", "ms", "plain_ms"}} summed over the shapes one
-    1080^2 frame runs."""
+    {name: {"max_abs_err", "ms", "plain_ms", "library_ms", "device_ms",
+    "bytes", "ops", "by_shape"}}, times, bytes and operations summed over
+    the shapes one 1080^2 frame runs (K1: 135^2 on the fast path, all four
+    levels on the reference path; S1: the reference path's three
+    upsamples). "ms" and "plain_ms" repeat one call on the same inputs, so
+    a kernel shorter than its launch reads as the host's launch cost;
+    "device_ms" is the kernel's device time on use-once inputs
+    (utils/profiling.time_use_once), None for K5; P1's "library_ms"
+    (``clone``) is a device time on the same kind of inputs."""
     import torch
 
     from optical_flow_tpu_torch.kernels.lk_kernel import lucas_kanade_cuda, lucas_kanade_plain
@@ -201,14 +237,19 @@ def phase_kernels(device, iters=20):
     from optical_flow_tpu_torch.kernels.warp_lk_kernel import (
         pyrup_warp_lk_cuda, pyrup_warp_lk_plain, warp_lk_cuda, warp_lk_plain,
     )
+    from optical_flow_tpu_torch.kernels.pyrup_kernel import pyr_up_pair_cuda, pyr_up_pair_plain
     from optical_flow_tpu_torch.kernels.tile_copy_kernel import tile_copy_cuda, tile_copy_plain
     from optical_flow_tpu_torch.kernels.warp_lk_kernel import pyrup_coarse_halo
     from optical_flow_tpu_torch.ops.pyramid import pyr_up_cols_first
     from optical_flow_tpu_torch.ops.warp import symmetric_warp
     from optical_flow_tpu_torch.parallel.halo import exchange_halo, exchange_halo_pyrup
     from optical_flow_tpu_torch.parallel.mesh import split
+    from optical_flow_tpu_torch.utils.profiling import (
+        OPS_PER_OUTPUT, Cost, io_bytes, kernel_cost, time_use_once,
+    )
 
     rng = np.random.RandomState(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
     mesh = grid_mesh(device)
 
     def t(a):
@@ -217,21 +258,54 @@ def phase_kernels(device, iters=20):
     def warped(a, b, wu, wv):
         return symmetric_warp(a, b, wu, wv, quantize=True, impl="shift_sep", max_disp=C)
 
+    def use_once(kernel, like, ranges=None, **kw):
+        """Device ms per call of `kernel(*inputs, **kw)` on USE_ONCE_SETS fresh
+        input sets shaped like `like`, each input uniform in its (lo, hi) of
+        `ranges` (default [0, 1))."""
+        ranges = ranges or [(0.0, 1.0)] * len(like)
+
+        def fresh():
+            return tuple(torch.empty(x.shape, device=device).uniform_(lo, hi, generator=gen)
+                         for x, (lo, hi) in zip(like, ranges))
+        return time_use_once(lambda *x: kernel(*x, **kw),
+                             [fresh() for _ in range(USE_ONCE_SETS + 1)], device)
+
     results = {}
 
-    def record(name, shape, err, ms, plain_ms, tol, full_err=None):
+    def record(name, shape, err, ms, plain_ms, tol, cost, full_err=None, library_ms=None,
+               device_ms=None):
         if not err <= tol:
             raise AssertionError(f"{name} at {shape}: max|err| {err:.3g} > {tol:g}")
         if full_err is not None and not full_err == 0.0:
             raise AssertionError(f"{name} at {shape}: max|err| {full_err:.3g} vs the full-frame "
                                  "kernel's region, want 0")
-        r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+        r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                      "library_ms": None, "device_ms": None, "bytes": 0.0,
+                                      "ops": 0.0, "by_shape": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += plain_ms
+        r["bytes"] += cost.bytes
+        r["ops"] += cost.ops
+        if library_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
+        if device_ms is not None:
+            r["device_ms"] = (r["device_ms"] or 0.0) + device_ms
+        r["by_shape"].append({"shape": list(shape), "max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "library_ms": library_ms,
+                              "device_ms": device_ms, "bytes": cost.bytes, "ops": cost.ops})
         vs_full = "" if full_err is None else f", vs full frame {full_err:.3g}"
+        lib = "" if library_ms is None else f", library {library_ms * 1e3:.1f} us"
+        dev = "" if device_ms is None else f", device {device_ms * 1e3:.2f} us"
         log(f"  {name} {shape[0]}x{shape[1]}: max|err| {err:.3g} (tol {tol:g}){vs_full}, "
-            f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us")
+            f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us{lib}{dev}")
+
+    def tile_cost(kind, calls, shape):
+        """K5 over the 2x2 grid: each extended input tile read once, each
+        tile's (u, v) written once."""
+        h, w = shape[0] // GRID[0], shape[1] // GRID[1]
+        return Cost(sum(io_bytes(args) + 2 * 4 * h * w for args, _, _ in calls),
+                    len(calls) * OPS_PER_OUTPUT[kind] * h * w)
 
     def tile_calls(ext, shape):
         """Each tile's (extended inputs, tile keywords, region of the frame)
@@ -267,7 +341,17 @@ def phase_kernels(device, iters=20):
         m = well_conditioned(a, b)
         err = max(masked_err(u1, u0, m), masked_err(v1, v0, m))
         ms, pms = time_pair(lambda: lucas_kanade_plain(a, b), lambda: lucas_kanade_cuda(a, b), iters)
-        record("lk", shape, err, ms, pms, ATOL_LK)
+        record("lk", shape, err, ms, pms, ATOL_LK, kernel_cost("lk", [a, b], [u1, v1]),
+               device_ms=use_once(lucas_kanade_cuda, (a, b)))
+    for shape in S1_SHAPES:
+        # reference-mode flow is not a displacement: tens of px and more
+        u, v = t(rng.randn(*shape) * 50.0), t(rng.randn(*shape) * 50.0)
+        (u1, v1), (u0, v0) = pyr_up_pair_cuda(u, v), pyr_up_pair_plain(u, v)
+        torch.cuda.synchronize()
+        err = max(float((u1 - u0).abs().max()), float((v1 - v0).abs().max()))
+        ms, pms = time_pair(lambda: pyr_up_pair_plain(u, v), lambda: pyr_up_pair_cuda(u, v), iters)
+        record("pyrup", shape, err, ms, pms, 0.0, kernel_cost("pyrup", [u, v], [u1, v1]),
+               device_ms=use_once(pyr_up_pair_cuda, (u, v), [(-100.0, 100.0)] * 2))
     for shape in K2_SHAPES:
         x = t(rng.rand(*shape) * 255.0)
         y1, y0 = pyr_down_cuda(x), pyr_down_plain(x)
@@ -276,7 +360,8 @@ def phase_kernels(device, iters=20):
             raise AssertionError(f"pyrdown shape {tuple(y1.shape)} != {tuple(y0.shape)}")
         err = float((y1 - y0).abs().max())
         ms, pms = time_pair(lambda: pyr_down_plain(x), lambda: pyr_down_cuda(x), iters)
-        record("pyrdown", shape, err, ms, pms, ATOL_PYRDOWN)
+        record("pyrdown", shape, err, ms, pms, ATOL_PYRDOWN, kernel_cost("pyrdown", [x], [y1]),
+               device_ms=use_once(pyr_down_cuda, (x,), [(0.0, 255.0)]))
     for shape in K3_SHAPES:
         H, W = shape
         a, b = t(rng.rand(H, W)), t(rng.rand(H, W))
@@ -289,7 +374,9 @@ def phase_kernels(device, iters=20):
         err = max(masked_err(u1, u0, m), masked_err(v1, v0, m))
         ms, pms = time_pair(lambda: pyrup_warp_lk_plain(a, b, uc, vc, **kw),
                             lambda: pyrup_warp_lk_cuda(a, b, uc, vc, **kw), iters)
-        record("pyrup_warp_lk", shape, err, ms, pms, ATOL_LK)
+        record("pyrup_warp_lk", shape, err, ms, pms, ATOL_LK,
+               kernel_cost("pyrup_warp_lk", [a, b, uc, vc], [u1, v1]),
+               device_ms=use_once(pyrup_warp_lk_cuda, (a, b, uc, vc), FLOW_RANGES, **kw))
     for shape in K4_SHAPES:
         a, b = t(rng.rand(*shape)), t(rng.rand(*shape))
         u, v = (t(f) for f in smooth_flow(rng, shape, 2.0))
@@ -300,7 +387,8 @@ def phase_kernels(device, iters=20):
         err = max(masked_err(u1, u0, m), masked_err(v1, v0, m))
         ms, pms = time_pair(lambda: warp_lk_plain(a, b, u, v, **kw),
                             lambda: warp_lk_cuda(a, b, u, v, **kw), iters)
-        record("warp_lk", shape, err, ms, pms, ATOL_LK)
+        record("warp_lk", shape, err, ms, pms, ATOL_LK, kernel_cost("warp_lk", [a, b, u, v], [u1, v1]),
+               device_ms=use_once(warp_lk_cuda, (a, b, u, v), FLOW_RANGES, **kw))
     for shape in K5_WARP_SHAPES:
         a, b = t(rng.rand(*shape)), t(rng.rand(*shape))
         u, v = (t(f) for f in smooth_flow(rng, shape, 2.0))
@@ -312,7 +400,8 @@ def phase_kernels(device, iters=20):
         err, full_err = tile_errors(calls, warp_lk_cuda, warp_lk_plain, kw, full, m)
         ms, pms = time_pair(each_tile(warp_lk_plain, calls, kw), each_tile(warp_lk_cuda, calls, kw),
                             iters)
-        record("warp_lk_tile", shape, err, ms, pms, ATOL_LK, full_err)
+        record("warp_lk_tile", shape, err, ms, pms, ATOL_LK, tile_cost("warp_lk", calls, shape),
+               full_err)
     for shape in K5_PYRUP_SHAPES:
         H, W = shape
         a, b = t(rng.rand(H, W)), t(rng.rand(H, W))
@@ -327,12 +416,15 @@ def phase_kernels(device, iters=20):
         err, full_err = tile_errors(calls, pyrup_warp_lk_cuda, pyrup_warp_lk_plain, kw, full, m)
         ms, pms = time_pair(each_tile(pyrup_warp_lk_plain, calls, kw),
                             each_tile(pyrup_warp_lk_cuda, calls, kw), iters)
-        record("pyrup_warp_lk_tile", shape, err, ms, pms, ATOL_LK, full_err)
+        record("pyrup_warp_lk_tile", shape, err, ms, pms, ATOL_LK,
+               tile_cost("pyrup_warp_lk", calls, shape), full_err)
     x = t(rng.rand(*P1_TILE))
     y1, y0 = tile_copy_cuda(x), tile_copy_plain(x)
     torch.cuda.synchronize()
     ms, pms = time_pair(lambda: tile_copy_plain(x), lambda: tile_copy_cuda(x), iters)
-    record("tile_copy", P1_TILE, float((y1 - y0).abs().max()), ms, pms, 0.0)
+    record("tile_copy", P1_TILE, float((y1 - y0).abs().max()), ms, pms, 0.0,
+           kernel_cost("copy", [x], [y1]), library_ms=use_once(torch.clone, (x,)),
+           device_ms=use_once(tile_copy_cuda, (x,)))
     torch.cuda.synchronize()
     return results
 
@@ -512,6 +604,208 @@ def phase_mesh_controller(device, size):
     return {"launches": counts, "median_epe_px": median_epe("mesh controller", u, v)}
 
 
+def phase_reference(device, frames):
+    """VideoPipeline(VideoConfig()) on phase 4's frames: the faithful uint8
+    head, reference mode (the flow not doubled between levels, S1 as the
+    upsample), the unbounded gather warp and the warped diff kept as the
+    next prevDiff. Per result frame: K1 at the four levels, S1 three
+    times. Once through the kernels and once with impl='torch' (the plain
+    path), which must launch nothing."""
+    import dataclasses
+
+    import torch
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.config import FlowConfig, VideoConfig
+    from optical_flow_tpu_torch.pipeline.preprocess import preprocess_frame
+
+    ref = VideoConfig()
+    plain = dataclasses.replace(ref, flow=FlowConfig(impl="torch"))
+    # the card's uint8 gray of one frame against the CPU port's
+    g1 = preprocess_frame(torch.from_numpy(frames[0]).to(device), ref.preprocess).cpu()
+    g0 = preprocess_frame(torch.from_numpy(frames[0]), ref.preprocess)
+    gd = (g1.to(torch.int32) - g0.to(torch.int32)).abs()
+    gray = {"max_abs_diff": int(gd.max()), "share_differing": float((gd > 0).double().mean())}
+    if g1.dtype != torch.uint8 or tuple(g1.shape) != (SIZE, SIZE) or gray["max_abs_diff"] > 1:
+        raise AssertionError(f"faithful gray on the card vs the CPU: {gray}, {g1.dtype}")
+
+    kernels.reset_launch_counts()
+    res_k, ms_k = run_stream(ref, frames, device)
+    counts = kernels.launch_counts()
+    res_p, ms_p = run_stream(plain, frames, device)
+    if kernels.launch_counts() != counts:
+        raise AssertionError("the plain reference path launched a kernel")
+    F = len(frames)
+    check_counts("reference slice", counts, {"oft_lk": 4 * (F - 2), "oft_pyrup": 3 * (F - 2)})
+    if len(res_k) != F - 2 or len(res_p) != F - 2:
+        raise AssertionError(f"expected {F - 2} results, got {len(res_k)} and {len(res_p)}")
+    d, votes, max_abs, identical = [], [], 0.0, True
+    for rk, rp in zip(res_k, res_p):
+        for x in (rk.u, rk.v, rp.u, rp.v):
+            if tuple(x.shape) != (SIZE, SIZE) or not bool(torch.isfinite(x).all()):
+                raise AssertionError("reference flow is not finite or has the wrong shape")
+        identical &= torch.equal(rk.u, rp.u) and torch.equal(rk.v, rp.v)
+        max_abs = max(max_abs, float((rk.u - rp.u).abs().max()), float((rk.v - rp.v).abs().max()))
+        inner = (slice(8, -8), slice(8, -8))
+        d.append(torch.hypot(rk.u[inner] - rp.u[inner], rk.v[inner] - rp.v[inner]).flatten())
+        a, b = int(rk.gesture.votes), int(rp.gesture.votes)
+        votes.append((a, b))
+        if abs(a - b) > max(1.0, 0.01 * max(a, b)):
+            raise AssertionError(f"reference votes differ beyond 1%: kernel {a}, plain {b}")
+    d = torch.cat(d).double().cpu().numpy()
+    med, q99 = float(np.median(d)), float(np.quantile(d, 0.99))
+    if not (med < 1e-3 and q99 < 0.02):
+        raise AssertionError(f"reference flow vs plain: median {med:.3g}, q99 {q99:.3g}")
+    return {
+        "frames": F, "launches": counts, "bit_identical": bool(identical),
+        "flow_max_abs_diff": max_abs, "flow_median": med, "flow_q99": q99, "votes": votes,
+        "flow_max_abs_px": max(float(r.u.abs().max()) for r in res_k),
+        "gray_card_vs_cpu": gray,
+        "ms_per_frame_kernels": float(np.median(ms_k)), "ms_per_frame_plain": float(np.median(ms_p)),
+        "ms_per_frame_kernels_mean": float(np.mean(ms_k)),
+        "ms_per_frame_plain_mean": float(np.mean(ms_p)),
+    }
+
+
+def phase_probes(device, n=100):
+    """S2-S4 on use-once inputs: `n` timed calls of each kernel variant
+    (device time of back-to-back launches, utils/profiling.time_use_once),
+    its plain version and, where one exists, the library call. The counts
+    of the timed kernel calls are read right after them; the comparisons
+    with the plain versions come after."""
+    import torch
+    import torch.nn.functional as F
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.kernels import probes as P
+    from optical_flow_tpu_torch.utils.profiling import Cost, kernel_cost, stage_roofline, time_use_once
+
+    rng = np.random.RandomState(SEED + 3)
+
+    def on(shape, scale=1.0, offset=0.0, dtype=torch.float32):
+        x = torch.from_numpy((rng.rand(*shape) * scale + offset).astype(np.float32))
+        return x.to(device).to(dtype)
+
+    def sets(make, k):
+        return [make() for _ in range(k + 1)]
+
+    h, w = P.S2_SHAPES[1]
+    s2 = sets(lambda: (on((h, w)), on((h, w))), n)
+    s3 = sets(lambda: (on(P.S3_SHAPE),), n)
+    s4 = {dt: sets(lambda dt=dt: (on(P.S4_SHAPE, offset=0.5, dtype=dt),
+                                  on(P.S4_SHAPE, scale=1e-3, dtype=dt)), n)
+          for dt in (torch.float32, torch.bfloat16)}
+    variants = {
+        "interleave": {
+            "cols_float2": (lambda a, b: P.interleave_cols_cuda(a, b, store="float2"), s2),
+            "cols_smem": (lambda a, b: P.interleave_cols_cuda(a, b, store="smem"), s2),
+            "rows": (P.interleave_rows_cuda, s2),
+        },
+        "colsum": {
+            "smem": (lambda x: P.colsum_cuda(x, reads="smem"), s3),
+            "shuffle": (lambda x: P.colsum_cuda(x, reads="shuffle"), s3),
+        },
+        "mul_add_chain": {
+            "f32": (P.mul_add_chain_cuda, s4[torch.float32]),
+            "bf16": (P.mul_add_chain_cuda, s4[torch.bfloat16]),
+        },
+    }
+    kernels.reset_launch_counts()
+    ms = {k: {v: time_use_once(fn, args, device) for v, (fn, args) in vs.items()}
+          for k, vs in variants.items()}
+    counts = kernels.launch_counts()
+
+    # plain versions; the eager ones queue many launches a call (S3 about
+    # 27, S4 128), so fewer calls, to stay inside the card's launch queue
+    plain_ms = {
+        "interleave": time_use_once(P.interleave_cols_plain, s2, device),
+        "colsum": time_use_once(P.colsum_plain, s3[:21], device),
+        "mul_add_chain": time_use_once(P.mul_add_chain_plain, s4[torch.float32][:6], device),
+    }
+    taps = torch.tensor([float(np.float32(0.1 * t)) for t in P.S3_TAPS], device=device)
+    weight = taps.reshape(1, 1, -1)
+
+    def conv(x):  # the window's outputs; cuDNN's order, TF32 off (main() sets it)
+        return F.conv1d(x.reshape(-1, 1, x.shape[-1])[..., 1 : P.S3_WIN + 12], weight)
+
+    library_ms = {
+        "interleave": time_use_once(lambda a, b: torch.stack([a, b], dim=-1).reshape(h, 2 * w),
+                                    s2, device),
+        "colsum": time_use_once(conv, s3, device),
+        "mul_add_chain": None,
+    }
+
+    errs = {}
+    a, b = s2[0]
+    want_c, want_r = P.interleave_cols_plain(a, b), P.interleave_rows_plain(a, b)
+    for v, got in (("cols_float2", P.interleave_cols_cuda(a, b, store="float2")),
+                   ("cols_smem", P.interleave_cols_cuda(a, b, store="smem")),
+                   ("rows", P.interleave_rows_cuda(a, b))):
+        errs[("interleave", v)] = float((got - (want_r if v == "rows" else want_c)).abs().max())
+    sq = (on(P.S2_SHAPES[0]), on(P.S2_SHAPES[0]))  # the probe's own 256^2 planes
+    errs[("interleave", "256x256")] = max(
+        float((P.interleave_cols_cuda(*sq, store=st) - P.interleave_cols_plain(*sq)).abs().max())
+        for st in ("float2", "smem"))
+    errs[("interleave", "256x256")] = max(errs[("interleave", "256x256")], float(
+        (P.interleave_rows_cuda(*sq) - P.interleave_rows_plain(*sq)).abs().max()))
+    (x,) = s3[0]
+    for v in ("smem", "shuffle"):
+        errs[("colsum", v)] = float((P.colsum_cuda(x, reads=v) - P.colsum_plain(x)).abs().max())
+    conv_err = float((conv(x).reshape(x.shape[:-1] + (P.S3_WIN,))
+                      - P.colsum_plain(x)[..., : P.S3_WIN]).abs().max())
+    for v, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        a, b = s4[dt][0]
+        errs[("mul_add_chain", v)] = float(
+            (P.mul_add_chain_cuda(a, b).float() - P.mul_add_chain_plain(a, b).float()).abs().max())
+    torch.cuda.synchronize()
+    bad = {k: e for k, e in errs.items() if e != 0.0}
+    if bad:
+        raise AssertionError(f"probes differ from their plain versions: {bad}")
+
+    a, b = s2[0]
+    (x,) = s3[0]
+    n4 = int(np.prod(P.S4_SHAPE))
+    cost = {
+        "interleave": kernel_cost("interleave", [a, b], [want_c]),
+        "colsum": kernel_cost("colsum", [x], [x], outputs_counted=x.numel() // x.shape[-1] * P.S3_WIN),
+        "mul_add_chain": Cost(3 * 4 * n4, 2 * P.S4_STEPS * n4),
+    }
+    rates = {
+        "copy_bytes_per_s": {v: cost["interleave"].bytes / (t * 1e-3)
+                             for v, t in ms["interleave"].items()},
+        "elementwise_ops_per_s": {v: cost["mul_add_chain"].ops / (t * 1e-3)
+                                  for v, t in ms["mul_add_chain"].items()},
+    }
+    # the bf16 chain moves half the bytes of the f32 one for the same operations
+    bf16 = stage_roofline(Cost(3 * 2 * n4, 2 * P.S4_STEPS * n4), ms["mul_add_chain"]["bf16"],
+                          dtype=torch.bfloat16)
+
+    # the rates the card sustains: many waves a call, fresh inputs far
+    # beyond the L2 (after the counts: these launches are no probe run's)
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+
+    def fresh(shape, lo, hi):
+        return torch.empty(shape, device=device).uniform_(lo, hi, generator=gen)
+
+    big = [(fresh(SUSTAINED_COPY_HW, 0.0, 1.0), fresh(SUSTAINED_COPY_HW, 0.0, 1.0))
+           for _ in range(SUSTAINED_SETS + 1)]
+    copy_ms = time_use_once(lambda a, b: P.interleave_cols_cuda(a, b, store="float2"), big, device)
+    del big
+    n_s, steps_s = SUSTAINED_CHAIN
+    chains = [(fresh((n_s,), 0.5, 1.5), fresh((n_s,), 0.0, 1e-3)) for _ in range(SUSTAINED_SETS + 1)]
+    chain_ms = time_use_once(lambda a, b: P.mul_add_chain_cuda(a, b, steps_s), chains, device)
+    del chains
+    sustained = {"copy_shape": list(SUSTAINED_COPY_HW), "copy_ms": copy_ms,
+                 "copy_bytes_per_s": 4 * 4 * int(np.prod(SUSTAINED_COPY_HW)) / (copy_ms * 1e-3),
+                 "chain": [n_s, steps_s], "chain_ms": chain_ms,
+                 "f32_ops_per_s": 2 * steps_s * n_s / (chain_ms * 1e-3)}
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "launches": counts,
+            "max_abs_err": {f"{k}/{v}": e for (k, v), e in errs.items()},
+            "conv1d_max_abs_diff": conv_err, "rates_at_probe_shapes": rates, "sustained": sustained,
+            "cost": {k: {"bytes": c.bytes, "ops": c.ops} for k, c in cost.items()},
+            "bf16_chain_roofline": bf16}
+
+
 def _busy_ms(intervals):
     """Length of the union of (start, end) intervals, in ms (input µs)."""
     busy, end = 0.0, -float("inf")
@@ -522,24 +816,23 @@ def _busy_ms(intervals):
     return busy / 1e3
 
 
-def phase_profile(device, size, warmup=PROFILE_WARMUP, n=PROFILE_FRAMES):
-    """Where the time of the kernel path goes. One pipeline takes `warmup`
-    frames, then `n` frames timed on the host clock (push + synchronize per
-    frame, no tracer), then `n` more under torch.profiler (CUDA activity
-    only), timed the same way. Device busy time is the union of the traced
-    device events; the idle share is 1 - busy / wall of the traced frames.
-    Writes the per-kernel totals to chiprun_out/profile_slice.json."""
+def phase_profile(device, config, name, warmup=PROFILE_WARMUP, n=PROFILE_FRAMES):
+    """Where the time of the kernel path of `config` goes. One pipeline
+    takes `warmup` frames, then `n` frames timed on the host clock (push +
+    synchronize per frame, no tracer), then `n` more under torch.profiler
+    (CUDA activity only), timed the same way. Device busy time is the union
+    of the traced device events; the idle share is 1 - busy / wall of the
+    traced frames. Writes the per-kernel totals to chiprun_out/`name`."""
     import pathlib
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from optical_flow_tpu_torch.config import VideoConfig
     from optical_flow_tpu_torch.pipeline.video import VideoPipeline
 
     frames = synthetic_frames(np.random.RandomState(SEED + 2), warmup + 2 * n, FRAME_HW)
-    pipe = VideoPipeline(VideoConfig.fast(size=(size, size)), device=device)
+    pipe = VideoPipeline(config, device=device)
 
     def push_timed(batch):
         ms = []
@@ -578,7 +871,7 @@ def phase_profile(device, size, warmup=PROFILE_WARMUP, n=PROFILE_FRAMES):
         "top": [{"name": k[:60], "calls_per_frame": v["calls"] / n, "ms_per_frame": v["ms"] / n}
                 for k, v in top[:8]],
     }
-    out = pathlib.Path(__file__).resolve().parent / "chiprun_out" / "profile_slice.json"
+    out = pathlib.Path(__file__).resolve().parent / "chiprun_out" / name
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps({"summary": summary, "untraced_ms": untraced, "traced_ms": traced,
                                "by_name": dict(top)}, indent=1))
@@ -593,8 +886,8 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU")
-    from optical_flow_tpu_torch import kernels
     from optical_flow_tpu_torch.kernels import _lib
+    from optical_flow_tpu_torch.utils.profiling import Cost, stage_roofline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -623,50 +916,102 @@ def main() -> int:
     log(f"[4 slice] {json.dumps(sl)}")
     ctl = phase_controller(device, SIZE)
     log(f"[5 controller] {json.dumps(ctl)}")
-    log(f"[6 profile] {json.dumps(phase_profile(device, SIZE))}")
+    from optical_flow_tpu_torch.config import VideoConfig
+
+    fast = VideoConfig.fast(size=(SIZE, SIZE))
+    log(f"[6 profile] {json.dumps(phase_profile(device, fast, 'profile_slice.json'))}")
     msl = phase_mesh_slice(device, frames, SIZE, stream_results)
     log(f"[7 mesh slice] {json.dumps(msl)}")
     del stream_results
     mctl = phase_mesh_controller(device, SIZE)
     log(f"[8 mesh controller] {json.dumps(mctl)}")
+    ref = phase_reference(device, frames)
+    log(f"[9 reference slice] {json.dumps(ref)}")
+    ref_prof = phase_profile(device, VideoConfig(), "profile_reference.json",
+                             n=REFERENCE_PROFILE_FRAMES)
+    log(f"[9 reference profile] {json.dumps(ref_prof)}")
+    prb = phase_probes(device)
+    log(f"[10 probes] {json.dumps(prb)}")
 
     # Each count comes from one run, its counters reset just before it: the
-    # streaming VideoPipeline.push run (phase 4) drives K1-K3, K4 runs on the
+    # streaming VideoPipeline.push run (phase 4) drives K2-K3, K4 runs on the
     # controller path, coarse_to_fine with level_iters=2 (phase 5), K5's K3
-    # mode and P1 on the mesh stream (phase 7) and K5's K4 mode on the mesh
-    # controller with level_iters=2 (phase 8).
+    # mode and P1 on the mesh stream (phase 7), K5's K4 mode on the mesh
+    # controller with level_iters=2 (phase 8), K1 at all four levels and S1
+    # on the reference stream (phase 9; phase 3 times K1 at those four
+    # shapes), and the probes S2-S4 in their own run (phase 10).
     meta = {
-        "lk": ("oft_lk", "stream", "optical_flow_tpu_torch/kernels/csrc/lk.cu",
+        "lk": (("oft_lk",), "reference", "optical_flow_tpu_torch/kernels/csrc/lk.cu",
                "optical_flow_tpu/kernels/lk_kernel.py:173"),
-        "pyrdown": ("oft_pyrdown", "stream", "optical_flow_tpu_torch/kernels/csrc/pyrdown.cu",
+        "pyrdown": (("oft_pyrdown",), "stream", "optical_flow_tpu_torch/kernels/csrc/pyrdown.cu",
                     "optical_flow_tpu/kernels/pyrdown_kernel.py:146"),
-        "pyrup_warp_lk": ("oft_pyrup_warp_lk", "stream",
+        "pyrup_warp_lk": (("oft_pyrup_warp_lk",), "stream",
                           "optical_flow_tpu_torch/kernels/csrc/warp_lk.cu",
                           "optical_flow_tpu/kernels/warp_lk_kernel.py:667"),
-        "warp_lk": ("oft_warp_lk", "controller", "optical_flow_tpu_torch/kernels/csrc/warp_lk.cu",
+        "warp_lk": (("oft_warp_lk",), "controller",
+                    "optical_flow_tpu_torch/kernels/csrc/warp_lk.cu",
                     "optical_flow_tpu/kernels/warp_lk_kernel.py:370"),
-        "pyrup_warp_lk_tile": ("oft_pyrup_warp_lk_tile", "mesh_stream",
+        "pyrup_warp_lk_tile": (("oft_pyrup_warp_lk_tile",), "mesh_stream",
                                "optical_flow_tpu_torch/kernels/csrc/warp_lk.cu",
                                "optical_flow_tpu/kernels/warp_lk_kernel.py:667"),
-        "warp_lk_tile": ("oft_warp_lk_tile", "mesh_controller",
+        "warp_lk_tile": (("oft_warp_lk_tile",), "mesh_controller",
                          "optical_flow_tpu_torch/kernels/csrc/warp_lk.cu",
                          "optical_flow_tpu/kernels/warp_lk_kernel.py:370"),
-        "tile_copy": ("oft_tile_copy", "mesh_stream",
+        "tile_copy": (("oft_tile_copy",), "mesh_stream",
                       "optical_flow_tpu_torch/kernels/csrc/tile_copy.cu",
                       "optical_flow_tpu/parallel/vma_compat.py:44"),
+        "pyrup": (("oft_pyrup",), "reference", "optical_flow_tpu_torch/kernels/csrc/pyrup.cu",
+                  "scripts/tpu_pyrup_poc.py:40"),
+        "interleave": (("oft_interleave_cols_f2", "oft_interleave_cols_smem", "oft_interleave_rows"),
+                       "probes", "optical_flow_tpu_torch/kernels/csrc/probes.cu",
+                       "scripts/tpu_interleave_poc.py:76"),
+        "colsum": (("oft_colsum_smem", "oft_colsum_shfl"), "probes",
+                   "optical_flow_tpu_torch/kernels/csrc/probes.cu", "scripts/tpu_roll_micro.py:40"),
+        "mul_add_chain": (("oft_mul_add_chain_f32", "oft_mul_add_chain_bf16"), "probes",
+                          "optical_flow_tpu_torch/kernels/csrc/probes.cu",
+                          "scripts/tpu_vpu_rate_probe.py:49"),
     }
     runs = {"stream": sl["launches"], "controller": ctl["launches"],
-            "mesh_stream": msl["launches"], "mesh_controller": mctl["launches"]}
-    missing = [name for name, (entry, run, _, _) in meta.items() if runs[run][entry] == 0]
+            "mesh_stream": msl["launches"], "mesh_controller": mctl["launches"],
+            "reference": ref["launches"], "probes": prb["launches"]}
+    missing = [name for name, (entries, run, _, _) in meta.items()
+               if any(runs[run][e] == 0 for e in entries)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")
+
+    # the probes' own rows: the first variant's time; all variants beside it
+    first = {"interleave": "cols_float2", "colsum": "smem", "mul_add_chain": "f32"}
+    for name, v0 in first.items():
+        errs = {k.split("/", 1)[1]: e for k, e in prb["max_abs_err"].items() if k.startswith(name)}
+        per_kernel[name] = {
+            "max_abs_err": max(errs.values()), "ms": prb["ms"][name][v0],
+            "plain_ms": prb["plain_ms"][name], "library_ms": prb["library_ms"][name],
+            "device_ms": prb["ms"][name][v0],
+            "bytes": prb["cost"][name]["bytes"], "ops": prb["cost"][name]["ops"],
+            "variants": prb["ms"][name]}
+    sustained = {"bytes_per_s": prb["sustained"]["copy_bytes_per_s"],
+                 "ops_per_s": {torch.float32: prb["sustained"]["f32_ops_per_s"]}}
     rows = []
-    for name, (entry, run, source, replaces) in meta.items():
+    for name, (entries, run, source, replaces) in meta.items():
         r = per_kernel[name]
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": runs[run][entry], "run": RUNS[run],
-                     "launches_by_run": {k: c[entry] for k, c in runs.items()},
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]})
+        # shares of the device time, where it was measured (not K5's)
+        roof = stage_roofline(Cost(r["bytes"], r["ops"]), r["device_ms"], rates=sustained)
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": sum(runs[run][e] for e in entries), "run": RUNS[run],
+               "launches_by_run": {k: sum(c[e] for e in entries) for k, c in runs.items()},
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": roof["bound_ms"], "bound_by": roof["bound_by"],
+               "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+               "share_of_bound": roof.get("share_of_bound"),
+               "sustained_ms": roof["sustained_ms"], "sustained_by": roof["sustained_by"],
+               "share_of_sustained": roof.get("share_of_sustained")}
+        if len(entries) > 1:
+            row["launches_by_entry"] = {e: runs[run][e] for e in entries}
+            row["variants_ms"] = r["variants"]
+        if "by_shape" in r:
+            row["by_shape"] = [dict(b, bound_ms=stage_roofline(Cost(b["bytes"], b["ops"]))["bound_ms"])
+                               for b in r["by_shape"]]
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

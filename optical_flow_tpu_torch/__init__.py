@@ -8,7 +8,9 @@ JAX.
 
 Layer map:
   ops/        dense tensor ops with OpenCV-faithful numerics
-  kernels/    K1-K5 and P1 CUDA kernels (csrc/) and their plain PyTorch versions
+  kernels/    K1-K5, P1, S1 and the probes S2-S4 as CUDA kernels (csrc/), with
+              their plain PyTorch versions
+  utils/      kernel timing on the card and the roofline model
   flow/       single-level LK and the coarse-to-fine controller
   parallel/   a grid of devices, halo exchange and the mesh-sharded controller
   pipeline/   preprocess -> pyramidal flow -> gesture video pipeline

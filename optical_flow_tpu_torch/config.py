@@ -58,8 +58,8 @@ class PreprocessConfig:
     learning_rate: float = 0.3
     diff_thresh: float = 10.0
     morph_iterations: int = 2
-    # True: the reference's uint8 saturating chain (not ported yet: raises
-    # NotImplementedError in preprocess); False: everything in float32.
+    # True: the reference's uint8 saturating chain; False: everything in
+    # float32.
     faithful_uint8: bool = True
 
 

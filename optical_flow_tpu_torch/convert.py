@@ -59,12 +59,14 @@ def video_config_from_jax(cfg) -> VideoConfig:
     )
 
 
-def pipeline_state_from_jax(state: dict, device="cpu") -> dict:
+def pipeline_state_from_jax(state: dict) -> dict:
     """The numpy dict of the JAX ``VideoPipeline.state()`` -> what the
-    port's ``VideoPipeline.restore`` takes (tensors on ``device``)."""
+    port's ``VideoPipeline.restore`` takes. A data conversion only: the
+    tensors stay on the CPU, and ``restore`` moves them to the pipeline's
+    device."""
 
     def t(x):
-        return None if x is None else torch.from_numpy(np.array(x)).to(device)
+        return None if x is None else torch.from_numpy(np.array(x))
 
     return {
         "prev_gray": t(state["prev_gray"]),

@@ -4,8 +4,9 @@ port of optical_flow_tpu/flow/coarse_to_fine.py).
 The kernels are chosen per call from ``FlowConfig.impl`` and the device of
 the frames: with the kernel route and the clamped, quantized shift_sep
 warp, the inter-level step runs on K3 (``level_step``) and every other
-warp+solve on K4 (``warp_solve``); the coarsest level runs on K1 through
-``lucas_kanade``.
+warp+solve on K4 (``warp_solve``); every LK solve outside those runs on
+K1 through ``lucas_kanade``; reference mode's inter-level upsample runs
+on S1 (``upsample``).
 """
 
 from __future__ import annotations
@@ -110,6 +111,19 @@ def _resolve_level_step(config: FlowConfig, max_disp: int, warp_solve):
     return level_step
 
 
+def _resolve_upsample(config: FlowConfig, is_cuda: bool):
+    """Reference mode's inter-level upsample of (u, v) for run_pyramid: S1
+    on the kernel route, else None (the plain ``pyr_up``)."""
+    if config.mode != "reference" or not use_cuda(config.impl, is_cuda):
+        return None
+    from optical_flow_tpu_torch.kernels.pyrup_kernel import pyr_up_pair_cuda
+
+    def upsample(u, v):
+        return pyr_up_pair_cuda(u.contiguous(), v.contiguous())
+
+    return upsample
+
+
 def coarse_to_fine_pyramids(
     pyr1, pyr2, *, config: FlowConfig = FlowConfig(), _need_images: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -132,7 +146,8 @@ def coarse_to_fine_pyramids(
     level_step = _resolve_level_step(config, max_disp, warp_solve)
     return run_pyramid(
         list(pyr1), list(pyr2), solve, warp, config,
-        warp_solve=warp_solve, level_step=level_step, need_images=_need_images,
+        warp_solve=warp_solve, level_step=level_step,
+        upsample=_resolve_upsample(config, is_cuda), need_images=_need_images,
     )
 
 

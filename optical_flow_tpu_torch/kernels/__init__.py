@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels for the H100 (sm_90a), one per TPU kernel on
-the flow paths, each with its plain PyTorch version:
+"""Hand-written CUDA kernels for the H100 (sm_90a), one per TPU kernel of
+the repository, each with its plain PyTorch version:
 
   K1  lk_kernel.lucas_kanade_cuda         csrc/lk.cu
   K2  pyrdown_kernel.pyr_down_cuda        csrc/pyrdown.cu
@@ -8,6 +8,10 @@ the flow paths, each with its plain PyTorch version:
   K5  the tile mode of K3/K4 (halo=, origin=, global_hw=; entry points
       oft_pyrup_warp_lk_tile, oft_warp_lk_tile), csrc/warp_lk.cu
   P1  tile_copy_kernel.tile_copy_cuda     csrc/tile_copy.cu (the mesh probe)
+  S1  pyrup_kernel.pyr_up_pair_cuda       csrc/pyrup.cu (reference mode's upsample)
+  S2  probes.interleave_{rows,cols}_cuda  csrc/probes.cu (probes: no flow path
+  S3  probes.colsum_cuda                  csrc/probes.cu  calls them)
+  S4  probes.mul_add_chain_cuda           csrc/probes.cu
 
 A wrapper given a CUDA tensor launches its kernel or raises; given a CPU
 tensor it runs the plain version. Launches are counted in
@@ -19,6 +23,7 @@ from typing import Dict
 from optical_flow_tpu_torch.kernels import _lib
 from optical_flow_tpu_torch.kernels.lk_kernel import lucas_kanade_cuda
 from optical_flow_tpu_torch.kernels.pyrdown_kernel import pyr_down_cuda
+from optical_flow_tpu_torch.kernels.pyrup_kernel import pyr_up_pair_cuda
 from optical_flow_tpu_torch.kernels.tile_copy_kernel import tile_copy_cuda
 from optical_flow_tpu_torch.kernels.warp_lk_kernel import pyrup_warp_lk_cuda, warp_lk_cuda
 
@@ -36,6 +41,7 @@ __all__ = [
     "launch_counts",
     "lucas_kanade_cuda",
     "pyr_down_cuda",
+    "pyr_up_pair_cuda",
     "pyrup_warp_lk_cuda",
     "reset_launch_counts",
     "tile_copy_cuda",

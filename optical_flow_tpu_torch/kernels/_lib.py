@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("lk.cu", "pyrdown.cu", "warp_lk.cu", "tile_copy.cu")
+SOURCES = ("lk.cu", "pyrdown.cu", "warp_lk.cu", "tile_copy.cu", "pyrup.cu", "probes.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,6 +48,15 @@ _ARGTYPES = {
     "oft_warp_lk_tile": [_P] * 6 + [_I, _I, _I, _I, _F, _F] + [_I] * 5 + [_P],
     "oft_pyrup_warp_lk_tile": [_P] * 6 + [_I, _I, _I, _I, _F] + [_I] * 6 + [_P],
     "oft_tile_copy": [_P, _P, _L, _P],
+    "oft_pyrup": [_P] * 4 + [_I] * 3 + [_P],
+    # the probes S2-S4 (csrc/probes.cu)
+    "oft_interleave_rows": [_P] * 3 + [_I] * 2 + [_P],
+    "oft_interleave_cols_f2": [_P] * 3 + [_I] * 2 + [_P],
+    "oft_interleave_cols_smem": [_P] * 3 + [_I] * 2 + [_P],
+    "oft_colsum_smem": [_P] * 2 + [_I] * 3 + [_P],
+    "oft_colsum_shfl": [_P] * 2 + [_I] * 3 + [_P],
+    "oft_mul_add_chain_f32": [_P] * 3 + [_L, _I, _P],
+    "oft_mul_add_chain_bf16": [_P] * 3 + [_L, _I, _P],
 }
 
 # Launch counts by C entry point: incremented only where a kernel launched.
@@ -144,11 +153,17 @@ def launch(name: str, device: torch.device, *args) -> None:
 def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous float32 CUDA tensor on one
     device (what the kernels take)."""
+    check_cuda(name, torch.float32, *tensors)
+
+
+def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous ``dtype`` CUDA tensor on
+    one device."""
     dev = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{name}: all inputs must be on one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: inputs must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: inputs must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")

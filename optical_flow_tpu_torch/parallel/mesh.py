@@ -54,10 +54,17 @@ def mesh_factorization(n: int) -> Tuple[int, int, int]:
 
 def canonical_device(device) -> torch.device:
     """``torch.device(device)`` with a bare ``'cuda'`` bound to the current
-    card, so that two names of one device compare equal."""
+    card, so that two names of one device compare equal. A CUDA device
+    without a card raises: nothing carries on on the CPU unasked."""
     d = torch.device(device)
-    if d.type == "cuda" and d.index is None:
-        d = torch.device("cuda", torch.cuda.current_device())
+    if d.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{str(d)!r} was asked for but no CUDA device is available; "
+                "pass device='cpu' (devices=['cpu'] for a mesh) to run on the CPU"
+            )
+        if d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
     return d
 
 
@@ -89,12 +96,13 @@ def flow_mesh(
     devices: Optional[Sequence] = None,
 ) -> FlowMesh:
     """A (frames, rows, cols) mesh over the first frames*rows*cols entries
-    of ``devices`` (default: the CPU alone). Repeats are allowed; a list
-    shorter than the grid is an error."""
+    of ``devices`` (default: the card, repeated over the grid; without a
+    card this raises). Repeats are allowed; a list shorter than the grid
+    is an error."""
     n = frames * rows * cols
     if n <= 0:
         raise ValueError(f"mesh axes must be >= 1, got {(frames, rows, cols)}")
-    devices = [torch.device("cpu")] if devices is None else list(devices)
+    devices = ["cuda"] * n if devices is None else list(devices)
     if len(devices) < n:
         raise ValueError(f"mesh needs {n} devices, have {len(devices)}")
     grid = np.empty(n, dtype=object)

@@ -33,6 +33,7 @@ import torch
 from optical_flow_tpu_torch.config import FlowConfig
 from optical_flow_tpu_torch.flow.coarse_to_fine import (
     _resolve_level_step,
+    _resolve_upsample,
     _resolve_warp_solve,
     _validate_levels,
     resolve_warp_impl,
@@ -140,9 +141,11 @@ def sharded_coarse_to_fine_pyramids(
         config, warp_impl, warp_max_disp, is_cuda, mesh, min_tile
     )
     level_step = _resolve_sharded_level_step(config, warp_max_disp, mesh, min_tile, warp_solve)
+    # reference mode's upsample runs whole on the home device, as the pyramid does
     return run_pyramid(
         list(pyr1), list(pyr2), solve, warp, config,
-        warp_solve=warp_solve, level_step=level_step, need_images=_need_images,
+        warp_solve=warp_solve, level_step=level_step,
+        upsample=_resolve_upsample(config, is_cuda), need_images=_need_images,
     )
 
 

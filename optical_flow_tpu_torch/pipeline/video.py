@@ -38,6 +38,7 @@ from optical_flow_tpu_torch.pipeline.preprocess import (
     ResizeBlur,
     diff_features,
     gray_f32,
+    preprocess_frame,
 )
 
 
@@ -51,18 +52,19 @@ class VideoPipeline:
     """Gesture tracking over a frame stream on one device, or with the flow
     tiled over a mesh whose home device is ``device``.
 
+    ``device`` is the card (``"cuda"``) unless the caller names another;
+    without a card it raises rather than run on the CPU. The preprocess
+    head follows ``config.preprocess.faithful_uint8``: the reference's uint8
+    chain, or the float ``ResizeBlur`` head.
+
     Usage:
-        pipe = VideoPipeline(VideoConfig.fast(), device="cuda")
+        pipe = VideoPipeline(VideoConfig.fast())                # on the card
+        pipe = VideoPipeline(VideoConfig(), device="cpu")       # plain, on the CPU
         for result in pipe.run(frames):   # frames: iterable of HxWx3 uint8
             if bool(result.gesture.detected): ...
     """
 
-    def __init__(self, config: VideoConfig = VideoConfig(), device="cpu", mesh=None):
-        if config.preprocess.faithful_uint8:
-            raise NotImplementedError(
-                "the faithful uint8 preprocess chain is not ported yet (ROADMAP.md, "
-                "Queue 1); use VideoConfig.fast() or faithful_uint8=False"
-            )
+    def __init__(self, config: VideoConfig = VideoConfig(), device="cuda", mesh=None):
         self.config = config
         self.device = canonical_device(device)
         if mesh is not None and mesh.home != self.device:
@@ -111,7 +113,10 @@ class VideoPipeline:
     # --- stages -------------------------------------------------------------
 
     def _preprocess(self, frame) -> torch.Tensor:
-        x = gray_f32(torch.as_tensor(frame).to(self.device))
+        frame = torch.as_tensor(frame).to(self.device)
+        if self.config.preprocess.faithful_uint8:
+            return preprocess_frame(frame, self.config.preprocess)
+        x = gray_f32(frame)
         key = tuple(x.shape[-2:])
         if key not in self._resizers:
             self._resizers[key] = ResizeBlur(key, self.config.preprocess).to(self.device)

@@ -1,6 +1,6 @@
 """Package-level contracts of the PyTorch port: it never imports JAX, its
-configurations carry across from the JAX package, and the paths not ported
-yet refuse clearly."""
+configurations carry across from the JAX package, the faithful uint8 chain
+runs, and the paths not ported yet refuse clearly."""
 
 import dataclasses
 import re
@@ -26,7 +26,8 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "import optical_flow_tpu_torch, optical_flow_tpu_torch.convert\n"
         "import optical_flow_tpu_torch.kernels, optical_flow_tpu_torch.pipeline\n"
-        "import optical_flow_tpu_torch.parallel\n"
+        "import optical_flow_tpu_torch.parallel, optical_flow_tpu_torch.kernels.probes\n"
+        "import optical_flow_tpu_torch.utils.profiling\n"
         "from optical_flow_tpu_torch.pipeline.video import VideoPipeline\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'optical_flow_tpu' or m.startswith('optical_flow_tpu.'))\n"
@@ -68,7 +69,7 @@ def test_flow_config_impl_mapping():
 def test_pipeline_state_from_jax_fresh_and_warm():
     from optical_flow_tpu_torch.pipeline.video import VideoPipeline
 
-    pipe = VideoPipeline(t_config.VideoConfig.fast(size=(16, 16)))
+    pipe = VideoPipeline(t_config.VideoConfig.fast(size=(16, 16)), device="cpu")
     pipe.restore(convert.pipeline_state_from_jax(
         {"prev_gray": None, "prev_diff": None, "frame_idx": 0}))
     assert pipe.state() == {"prev_gray": None, "prev_diff": None, "frame_idx": 0}
@@ -84,10 +85,14 @@ def test_unported_paths_refuse():
     from optical_flow_tpu_torch.pipeline.preprocess import preprocess_frame
     from optical_flow_tpu_torch.pipeline.video import VideoPipeline
 
-    with pytest.raises(NotImplementedError):
-        VideoPipeline(t_config.VideoConfig())  # faithful uint8 chain
-    with pytest.raises(NotImplementedError):
-        preprocess_frame(torch.zeros(8, 8, 3, dtype=torch.uint8), t_config.PreprocessConfig())
+    # the faithful uint8 chain is ported: the default configuration builds a
+    # pipeline, and a uint8 frame gives a uint8 gray of the configured size
+    pipe = VideoPipeline(t_config.VideoConfig(), device="cpu")
+    assert pipe.config.preprocess.faithful_uint8 and pipe.config.flow.mode == "reference"
+    gray = preprocess_frame(torch.full((8, 8, 3), 7, dtype=torch.uint8),
+                            t_config.PreprocessConfig(size=(16, 16)))
+    assert gray.dtype == torch.uint8 and tuple(gray.shape) == (16, 16)
+    assert bool((gray == 7).all())  # a flat frame stays flat through resize, blur and gray
     with pytest.raises(NotImplementedError):
         resolve_warp_impl(t_config.FlowConfig(warp_impl="shift", warp_clamp=8.0), True)
     # 'auto' follows the device: shift_sep only for CUDA frames

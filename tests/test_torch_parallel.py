@@ -416,8 +416,8 @@ def _video_configs():
 def test_mesh_pipeline_equals_unsharded_and_matches_jax():
     jf, tf = _video_configs()
     frames = _frames()
-    tres = list(TVideoPipeline(tf, mesh=_tmesh((1, 2, 2))).run(frames))
-    tres0 = list(TVideoPipeline(tf).run(frames))
+    tres = list(TVideoPipeline(tf, device="cpu", mesh=_tmesh((1, 2, 2))).run(frames))
+    tres0 = list(TVideoPipeline(tf, device="cpu").run(frames))
     jres = list(JVideoPipeline(jf, mesh=_jmesh((1, 2, 2))).run(frames, prefetch=0))
     assert len(tres) == len(tres0) == len(jres) == len(frames) - 2
     inner = (slice(8, -8), slice(8, -8))
@@ -434,9 +434,9 @@ def test_mesh_pipeline_batched_equals_streaming():
     """run_batched with the pairs split over the frames axis."""
     _, tf = _video_configs()
     frames = _frames()
-    pipe = TVideoPipeline(tf, mesh=_tmesh((2, 2, 2)))
+    pipe = TVideoPipeline(tf, device="cpu", mesh=_tmesh((2, 2, 2)))
     batched = pipe.run_batched(torch.from_numpy(frames))
-    stream = list(TVideoPipeline(tf).run(frames))
+    stream = list(TVideoPipeline(tf, device="cpu").run(frames))
     for k, r in enumerate(stream):
         assert torch.equal(batched.u[k], r.u) and torch.equal(batched.v[k], r.v)
         assert int(batched.gesture.votes[k]) == int(r.gesture.votes)

@@ -1,0 +1,239 @@
+"""The probes S2-S4 (kernels/probes.py) and the roofline model
+(utils/profiling.py).
+
+The TPU probes run their Pallas code when their scripts are imported, so
+each plain version is held against the numpy formula its script checks
+with, bit for bit: the interleaves of scripts/tpu_interleave_poc.py, the
+slice variant's column sum of scripts/tpu_roll_micro.py, and the mul-add
+chain of scripts/tpu_vpu_rate_probe.py (bfloat16 emulated in numpy: each
+float32 result rounded to bfloat16, half to even). The tests marked
+``cuda`` hold each kernel against its plain version on the card.
+"""
+
+import numpy as np
+import pytest
+
+import torch
+
+from optical_flow_tpu_torch import kernels
+from optical_flow_tpu_torch.kernels import probes
+from optical_flow_tpu_torch.utils import profiling
+
+
+def _bf16(x):
+    """float32 -> the nearest bfloat16 (ties to even), as float32."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _s4_numpy(a, b, steps, bf16):
+    rnd = _bf16 if bf16 else (lambda x: x)
+    acc = a
+    for _ in range(steps):
+        acc = rnd(rnd(acc * b) + a)
+    return acc
+
+
+def _s3_numpy(x, win):
+    acc = np.zeros(x.shape[:-1] + (win,), np.float32)
+    for t in range(-5, 7):
+        acc = acc + np.float32(0.1 * t) * x[..., 6 + t : 6 + t + win]
+    out = np.zeros_like(x)
+    out[..., :win] = acc
+    return out
+
+
+# ---------------------------------------------------------------- S2
+
+
+@pytest.mark.parametrize("shape", probes.S2_SHAPES)
+@pytest.mark.parametrize("store", ["float2", "smem"])
+def test_interleave_plain_matches_script(shape, store):
+    rng = np.random.RandomState(0)
+    a = rng.rand(*shape).astype(np.float32)
+    b = rng.rand(*shape).astype(np.float32)
+    want_rows = np.zeros((2 * shape[0], shape[1]), np.float32)
+    want_rows[0::2], want_rows[1::2] = a, b
+    want_cols = np.zeros((shape[0], 2 * shape[1]), np.float32)
+    want_cols[:, 0::2], want_cols[:, 1::2] = a, b
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    np.testing.assert_array_equal(probes.interleave_rows_cuda(ta, tb).numpy(), want_rows)
+    np.testing.assert_array_equal(probes.interleave_cols_cuda(ta, tb, store=store).numpy(), want_cols)
+
+
+def test_interleave_rejects_bad_input():
+    z = torch.zeros(4, 6)
+    with pytest.raises(ValueError):
+        probes.interleave_cols_cuda(z, z, store="transpose")
+    with pytest.raises(ValueError):
+        probes.interleave_rows_cuda(z, z[:, :5])
+    with pytest.raises(ValueError):
+        probes.interleave_rows_cuda(torch.zeros(2, 4, 6), torch.zeros(2, 4, 6))
+
+
+# ---------------------------------------------------------------- S3
+
+
+@pytest.mark.parametrize("shape,win", [(probes.S3_SHAPE, probes.S3_WIN), ((3, 40), 28), ((2, 2, 13), 1)])
+@pytest.mark.parametrize("reads", ["smem", "shuffle"])
+def test_colsum_plain_matches_script(shape, win, reads):
+    x = np.random.RandomState(1).rand(*shape).astype(np.float32)
+    got = probes.colsum_cuda(torch.from_numpy(x), win, reads=reads)
+    np.testing.assert_array_equal(got.numpy(), _s3_numpy(x, win))
+
+
+def test_colsum_rejects_a_window_past_the_row():
+    with pytest.raises(ValueError):
+        probes.colsum_cuda(torch.zeros(2, 20), 9)
+    with pytest.raises(ValueError):
+        probes.colsum_cuda(torch.zeros(2, 20), 8, reads="roll")
+
+
+# ---------------------------------------------------------------- S4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mul_add_chain_plain_matches_script(dtype):
+    rng = np.random.RandomState(2)
+    a = rng.rand(*probes.S4_SHAPE).astype(np.float32) + 0.5
+    b = rng.rand(*probes.S4_SHAPE).astype(np.float32) * 1e-3
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        a, b = _bf16(a), _bf16(b)
+    got = probes.mul_add_chain_cuda(torch.from_numpy(a).to(dtype), torch.from_numpy(b).to(dtype))
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got.float().numpy(), _s4_numpy(a, b, probes.S4_STEPS, bf16))
+
+
+def test_mul_add_chain_rejects_other_types():
+    with pytest.raises(ValueError):
+        probes.mul_add_chain_cuda(torch.zeros(4, dtype=torch.float64), torch.zeros(4, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        probes.mul_add_chain_cuda(torch.zeros(4), torch.zeros(4, dtype=torch.bfloat16))
+
+
+def test_cpu_probes_launch_nothing():
+    before = kernels.launch_counts()
+    x = torch.rand(8, 32)
+    probes.interleave_rows_cuda(x, x)
+    probes.interleave_cols_cuda(x, x, store="smem")
+    probes.colsum_cuda(x, 16, reads="shuffle")
+    probes.mul_add_chain_cuda(x, x, 3)
+    assert kernels.launch_counts() == before
+
+
+# ---------------------------------------------------------- the roofline model
+
+
+def test_kernel_costs_on_known_shapes():
+    """Each input byte read once and each output byte written once, against
+    3.35 TB/s (the worked examples of the kernel table)."""
+    px = 1080 * 1080
+    f = torch.zeros(1080, 1080)
+    q = torch.zeros(540, 540)
+    k1 = profiling.kernel_cost("lk", [f, f], [f, f])
+    assert k1 == profiling.Cost(4 * 4 * px, 77 * px)
+    r = profiling.stage_roofline(k1, 0.0557)
+    assert r["bound_by"] == "bytes" and r["bound_ms"] == pytest.approx(18_662_400 / 3.35e12 * 1e3)
+    assert r["bound_ms"] * 1e3 == pytest.approx(5.571, abs=1e-3)  # us
+    assert r["share_of_bound"] == pytest.approx(0.1, rel=1e-3)
+    s1 = profiling.kernel_cost("pyrup", [q, q], [f, f])
+    assert s1.bytes == 2 * 4 * 540 * 540 + 2 * 4 * px == 11_664_000
+    assert profiling.stage_roofline(s1)["bound_ms"] * 1e3 == pytest.approx(3.482, abs=1e-3)
+    k3 = profiling.kernel_cost("pyrup_warp_lk", [f, f, q, q], [f, f])
+    assert k3.bytes == 18 * px
+    assert profiling.stage_roofline(k3)["bound_ms"] * 1e3 == pytest.approx(6.267, abs=1e-3)
+    s3 = profiling.kernel_cost("colsum", [], [torch.zeros(1)], outputs_counted=15 * 88 * 1156)
+    assert s3.ops == 24 * 15 * 88 * 1156
+    assert profiling.stage_roofline(s3)["bound_by"] == "operations"
+
+
+def test_stage_roofline_against_measured_rates():
+    c = profiling.Cost(1e9, 1e9)
+    r = profiling.stage_roofline(c, 1.0, rates={"bytes_per_s": 2e12,
+                                                "ops_per_s": {torch.float32: 1e11}})
+    assert r["bound_by"] == "bytes" and r["bound_ms"] == pytest.approx(1e9 / 3.35e12 * 1e3)
+    assert r["sustained_by"] == "operations"
+    assert r["sustained_ms"] == pytest.approx(10.0)
+    assert r["share_of_sustained"] == pytest.approx(10.0)
+    assert "share_of_bound" in r and "share_of_sustained" not in profiling.stage_roofline(c)
+    bf = torch.zeros(4, 4, dtype=torch.bfloat16)
+    assert profiling.io_bytes([bf, torch.zeros(2, 2, dtype=torch.float32)]) == 32 + 16
+
+
+@pytest.mark.parametrize("dtype, peak, bound_us", [(torch.float32, 67e12, 1.878),
+                                                   (torch.bfloat16, 133.8e12, 0.939)])
+def test_stage_roofline_peak_follows_the_operations_type(dtype, peak, bound_us):
+    """The operations' peak is the card's rate outside the tensor cores for
+    their type. S4's chain on (512, 1024) (a, b read and the result written
+    in the chain's type, 2 operations a step) is bound by its bytes in
+    either type once bfloat16 takes its own rate, twice float32's."""
+    ops_only = profiling.stage_roofline(profiling.Cost(0.0, 1e12), dtype=dtype)
+    assert ops_only["bound_by"] == "operations"
+    assert ops_only["bound_ms"] == pytest.approx(1e12 / peak * 1e3)
+    n = 512 * 1024
+    size = torch.zeros((), dtype=dtype).element_size()
+    r = profiling.stage_roofline(profiling.Cost(3 * size * n, 2 * 64 * n), dtype=dtype)
+    assert r["bound_by"] == "bytes"
+    assert r["bound_ms"] * 1e3 == pytest.approx(bound_us, abs=1e-3)  # us
+
+
+def test_device_timing_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        profiling.time_use_once(lambda: None, [(), ()], "cuda")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        profiling.time_use_once(lambda: None, [(), ()], "cpu")
+
+
+# ---------------------------------------------------- on the card (marked)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _counted(name, fn):
+    before = kernels.launch_counts()[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+def test_probes_on_card_equal_plain(cuda_device):
+    rng = np.random.RandomState(3)
+
+    def on(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.from_numpy(rng.rand(*shape).astype(np.float32)) * scale).to(cuda_device, dtype)
+
+    for shape in probes.S2_SHAPES:
+        a, b = on(*shape), on(*shape)
+        want_r, want_c = probes.interleave_rows_plain(a, b), probes.interleave_cols_plain(a, b)
+        assert torch.equal(_counted("oft_interleave_rows", lambda: probes.interleave_rows_cuda(a, b)),
+                           want_r)
+        for store, entry in (("float2", "oft_interleave_cols_f2"), ("smem", "oft_interleave_cols_smem")):
+            got = _counted(entry, lambda: probes.interleave_cols_cuda(a, b, store=store))
+            assert torch.equal(got, want_c)
+    x = on(*probes.S3_SHAPE)
+    for reads, entry in (("smem", "oft_colsum_smem"), ("shuffle", "oft_colsum_shfl")):
+        assert torch.equal(_counted(entry, lambda: probes.colsum_cuda(x, reads=reads)),
+                           probes.colsum_plain(x))
+    for dtype, entry in ((torch.float32, "oft_mul_add_chain_f32"),
+                         (torch.bfloat16, "oft_mul_add_chain_bf16")):
+        a, b = on(*probes.S4_SHAPE, dtype=dtype) + 0.5, on(*probes.S4_SHAPE, scale=1e-3, dtype=dtype)
+        assert torch.equal(_counted(entry, lambda: probes.mul_add_chain_cuda(a, b)),
+                           probes.mul_add_chain_plain(a, b))
+
+
+@pytest.mark.cuda
+def test_time_use_once_on_card(cuda_device):
+    sets = [(torch.rand(512, 1024, device=cuda_device) + 0.5, torch.rand(512, 1024, device=cuda_device))
+            for _ in range(9)]
+    ms = profiling.time_use_once(probes.mul_add_chain_cuda, sets, cuda_device)
+    assert 0.0 < ms < 1.0

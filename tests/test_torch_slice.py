@@ -232,7 +232,7 @@ def test_video_pipeline_end_to_end_matches_jax():
     jf, tf = _configs()
     frames = _frames()
     jres = list(JVideoPipeline(jf).run(frames, prefetch=0))
-    tpipe = TVideoPipeline(tf)
+    tpipe = TVideoPipeline(tf, device="cpu")
     tres = list(tpipe.run(frames))
     assert len(tres) == len(frames) - 2
     _assert_results_close(jres, tres)
@@ -251,7 +251,7 @@ def test_state_carried_over_from_jax():
     jpipe = JVideoPipeline(jf)
     for f in frames[:3]:
         jpipe.push(f)
-    tpipe = TVideoPipeline(tf)
+    tpipe = TVideoPipeline(tf, device="cpu")
     tpipe.restore(pipeline_state_from_jax(jpipe.state()))
     assert tpipe.state()["frame_idx"] == 3
     jres = [jpipe.push(f) for f in frames[3:]]
@@ -273,5 +273,5 @@ def test_faithful_prev_diff_reference_mode_matches_jax():
     )
     frames = _frames(5)
     jres = list(JVideoPipeline(jc).run(frames, prefetch=0))
-    tres = list(TVideoPipeline(tc).run(frames))
+    tres = list(TVideoPipeline(tc, device="cpu").run(frames))
     _assert_results_close(jres, tres)
