@@ -7,14 +7,18 @@ configuration) once on an NVIDIA GPU, and run the probes S2-S4.
 
 Phases, each printing one line (any failure raises and exits non-zero):
   1. device: the card's name and its nvidia-smi name/power-limit line;
-  2. build: compile the CUDA kernels from optical_flow_tpu_torch/kernels/csrc;
+  2. build: compile the CUDA kernels from optical_flow_tpu_torch/kernels/csrc,
+     and print what the compiler allotted K3-K5 (registers, spills);
   3. each kernel against its plain PyTorch version at the shapes of the main
      path, float32, with its tolerance, timed with CUDA events in turns
-     (plain, kernel, kernel, plain) after warm-up, and the one-call kernels
-     (K1-K4, S1) also by their device time on use-once inputs; K5 (the
-     tile mode of K3 and K4) on the 2x2 tile grid of the mesh path, also
-     against the full-frame kernel's region (max |err| must be 0), and P1
-     (the mesh probe's copy kernel) on the probe's tiles;
+     (plain, kernel, kernel, plain) after warm-up, and by its device time
+     on use-once inputs; K5 (the tile mode of K3 and K4) on the 2x2 tile
+     grid of the mesh path, also against the full-frame kernel's region
+     (max |err| must be 0), timed as one frame's four tiles; K3-K5 held to
+     max |err| 0 (the unmasked max |err| printed beside it), also over a
+     ragged and C sweep (shapes that leave partial blocks, C = 1, 4, 8);
+     and P1 (the mesh probe's copy kernel) on the probe's tiles, in turns
+     with ``clone`` over several rounds;
   4. the slice: VideoPipeline(VideoConfig.fast()) on 12 synthetic 720x1280
      BGR frames, once through the kernels and once on the plain path, flows
      compared by quantiles and gesture votes within 1%, exact launch counts;
@@ -56,6 +60,7 @@ network.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -80,6 +85,17 @@ K5_PYRUP_SHAPES = [(540, 540), (1080, 1080)]
 P1_TILE = (8, 128)  # the mesh probe's tile (parallel/vma_compat.py)
 CLAMP, C = 8.0, 4  # VideoConfig.fast(): warp_clamp=8 -> shift_sep max_disp 4
 ATOL_LK = 2e-5  # well-conditioned pixels (tests/test_warp_lk_kernel.py:61-106)
+# K3-K5 follow their plain versions operation for operation: held to 0 on the
+# well-conditioned pixels (the unmasked max |err| is printed beside it)
+ATOL_WARP_LK = 0.0
+# the ragged and C sweep of K3-K5: shapes that leave partial blocks of the
+# kernel's tiles (29 columns, 32 or 64 rows), at several tap reaches C (clamp
+# 2C, flows scaled so that the quantized half-flow reaches +-C)
+SWEEP_C = (1, 4, 8)
+K3_SWEEP = [(2, 270, 270), (2, 134, 198), (52, 38)]
+K4_SWEEP = [(2, 61, 37), (1080, 1000)]
+K5_SWEEP = {"warp_lk_tile": (270, 270), "pyrup_warp_lk_tile": (268, 268)}  # odd / even tiles
+P1_ROUNDS = 5  # P1 and clone timed in turns, each round on use-once inputs
 ATOL_PYRDOWN = 2e-3  # vs 'poly' (tests/test_kernels.py:100-101)
 SHIFT = (2.5, -1.5)  # (dx, dy) of the phase-5 pair, px
 RUNS = {"stream": "VideoPipeline.push (phase 4)",
@@ -228,8 +244,11 @@ def phase_kernels(device, iters=20):
     upsamples). "ms" and "plain_ms" repeat one call on the same inputs, so
     a kernel shorter than its launch reads as the host's launch cost;
     "device_ms" is the kernel's device time on use-once inputs
-    (utils/profiling.time_use_once), None for K5; P1's "library_ms"
-    (``clone``) is a device time on the same kind of inputs."""
+    (utils/profiling.time_use_once; K5: the four tiles of a frame); P1's
+    and its ``clone``'s ("library_ms") are the medians of P1_ROUNDS rounds
+    in turns, each round's reading kept ("device_ms_runs",
+    "library_ms_runs"). K3-K5 also run the ragged and C sweep ("sweep"),
+    held to 0 like the main shapes."""
     import torch
 
     from optical_flow_tpu_torch.kernels.lk_kernel import lucas_kanade_cuda, lucas_kanade_plain
@@ -255,25 +274,25 @@ def phase_kernels(device, iters=20):
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
-    def warped(a, b, wu, wv):
-        return symmetric_warp(a, b, wu, wv, quantize=True, impl="shift_sep", max_disp=C)
+    def warped(a, b, wu, wv, md=C):
+        return symmetric_warp(a, b, wu, wv, quantize=True, impl="shift_sep", max_disp=md)
+
+    def fresh(like, ranges):
+        return tuple(torch.empty(x.shape, device=device).uniform_(lo, hi, generator=gen)
+                     for x, (lo, hi) in zip(like, ranges))
 
     def use_once(kernel, like, ranges=None, **kw):
         """Device ms per call of `kernel(*inputs, **kw)` on USE_ONCE_SETS fresh
         input sets shaped like `like`, each input uniform in its (lo, hi) of
         `ranges` (default [0, 1))."""
         ranges = ranges or [(0.0, 1.0)] * len(like)
-
-        def fresh():
-            return tuple(torch.empty(x.shape, device=device).uniform_(lo, hi, generator=gen)
-                         for x, (lo, hi) in zip(like, ranges))
         return time_use_once(lambda *x: kernel(*x, **kw),
-                             [fresh() for _ in range(USE_ONCE_SETS + 1)], device)
+                             [fresh(like, ranges) for _ in range(USE_ONCE_SETS + 1)], device)
 
     results = {}
 
     def record(name, shape, err, ms, plain_ms, tol, cost, full_err=None, library_ms=None,
-               device_ms=None):
+               device_ms=None, unmasked=None):
         if not err <= tol:
             raise AssertionError(f"{name} at {shape}: max|err| {err:.3g} > {tol:g}")
         if full_err is not None and not full_err == 0.0:
@@ -294,7 +313,12 @@ def phase_kernels(device, iters=20):
         r["by_shape"].append({"shape": list(shape), "max_abs_err": err, "ms": ms,
                               "plain_ms": plain_ms, "library_ms": library_ms,
                               "device_ms": device_ms, "bytes": cost.bytes, "ops": cost.ops})
+        if unmasked is not None:
+            r["by_shape"][-1]["max_abs_err_unmasked"] = unmasked
+            r["max_abs_err_unmasked"] = max(r.get("max_abs_err_unmasked", 0.0), unmasked)
         vs_full = "" if full_err is None else f", vs full frame {full_err:.3g}"
+        if unmasked is not None:
+            vs_full = f", unmasked {unmasked:.3g}" + vs_full
         lib = "" if library_ms is None else f", library {library_ms * 1e3:.1f} us"
         dev = "" if device_ms is None else f", device {device_ms * 1e3:.2f} us"
         log(f"  {name} {shape[0]}x{shape[1]}: max|err| {err:.3g} (tol {tol:g}){vs_full}, "
@@ -307,7 +331,7 @@ def phase_kernels(device, iters=20):
         return Cost(sum(io_bytes(args) + 2 * 4 * h * w for args, _, _ in calls),
                     len(calls) * OPS_PER_OUTPUT[kind] * h * w)
 
-    def tile_calls(ext, shape):
+    def tile_calls(ext, shape, md=C):
         """Each tile's (extended inputs, tile keywords, region of the frame)
         on the 2x2 grid; the extended tiles are what the sharded wrappers
         hand K5 (split + halo exchange)."""
@@ -315,24 +339,71 @@ def phase_kernels(device, iters=20):
         calls = []
         for idx in np.ndindex(ext[0].shape):
             r0, c0 = idx[1] * h, idx[2] * w
-            calls.append(([e[idx] for e in ext], dict(halo=C + 2, origin=(r0, c0), global_hw=shape),
+            calls.append(([e[idx] for e in ext], dict(halo=md + 2, origin=(r0, c0), global_hw=shape),
                           (slice(r0, r0 + h), slice(c0, c0 + w))))
         return calls
 
+    def pair_errors(out, ref, mask):
+        """(max |err| of (u, v) on the mask, max |err| everywhere)."""
+        err = max(masked_err(out[0], ref[0], mask), masked_err(out[1], ref[1], mask))
+        return err, max(float((o - r).abs().max()) for o, r in zip(out, ref))
+
     def tile_errors(calls, kernel, plain, kw, full, mask):
-        """K5 per tile: max masked |kernel - plain| on the same extended
-        tile, and max |kernel - the full-frame kernel's region|."""
-        err = full_err = 0.0
+        """K5 per tile: max |kernel - plain| on the same extended tile (on the
+        mask and everywhere), and max |kernel - the full-frame kernel's
+        region|."""
+        err = unmasked = full_err = 0.0
         for args, tile, reg in calls:
-            (u1, v1), (u0, v0) = kernel(*args, **kw, **tile), plain(*args, **kw, **tile)
+            out, ref = kernel(*args, **kw, **tile), plain(*args, **kw, **tile)
             torch.cuda.synchronize()
-            err = max(err, masked_err(u1, u0, mask[reg]), masked_err(v1, v0, mask[reg]))
-            full_err = max(full_err, float((u1 - full[0][reg]).abs().max()),
-                           float((v1 - full[1][reg]).abs().max()))
-        return err, full_err
+            e, ue = pair_errors(out, ref, mask[reg])
+            err, unmasked = max(err, e), max(unmasked, ue)
+            full_err = max(full_err, *(float((o - f[reg]).abs().max()) for o, f in zip(out, full)))
+        return err, unmasked, full_err
 
     def each_tile(fn, calls, kw):
         return lambda: [fn(*args, **kw, **tile) for args, tile, _ in calls]
+
+    def tile_use_once(kernel, calls, kw):
+        """Device ms of one frame's tiles (one launch each), every timed call
+        on fresh extended tiles of the same shapes."""
+        tiles = [tile for _, tile, _ in calls]
+        sets = [([fresh(args, FLOW_RANGES) for args, _, _ in calls],)
+                for _ in range(USE_ONCE_SETS + 1)]
+        return time_use_once(lambda xs: [kernel(*x, **kw, **tl) for x, tl in zip(xs, tiles)],
+                             sets, device)
+
+    def flow_pair(shape, scale):
+        """Smooth (u, v) of `shape` (leading dims: one flow each)."""
+        lead, hw = shape[:-2], shape[-2:]
+        fs = [smooth_flow(rng, hw, scale) for _ in range(int(np.prod(lead, dtype=int)))]
+        return tuple(t(np.stack([f[k] for f in fs]).reshape(shape)) for k in (0, 1))
+
+    def k3_mask(a, b, uc, vc, md, cl):
+        upu, upv = 2.0 * pyr_up_cols_first(uc), 2.0 * pyr_up_cols_first(vc)
+        return well_conditioned(*warped(a, b, -upu.clamp(-cl, cl), -upv.clamp(-cl, cl), md))
+
+    def k4_mask(a, b, u, v, md, cl):
+        return well_conditioned(*warped(a, b, -u.clamp(-cl, cl), -v.clamp(-cl, cl), md))
+
+    def sweep(name, shape, md, err, unmasked, mask, full_err=None):
+        """One case of the ragged and C sweep, held to 0 on the mask."""
+        share = float(mask.double().mean())
+        if not err <= ATOL_WARP_LK or not share > 0.5:
+            raise AssertionError(f"{name} sweep at {shape}, C={md}: max|err| {err:.3g} "
+                                 f"on {share:.3f} of the pixels")
+        if full_err is not None and not full_err == 0.0:
+            raise AssertionError(f"{name} sweep at {shape}, C={md}: vs the full-frame kernel "
+                                 f"{full_err:.3g}, want 0")
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["max_abs_err_unmasked"] = max(r.get("max_abs_err_unmasked", 0.0), unmasked)
+        r.setdefault("sweep", []).append({"shape": list(shape), "max_disp": md, "max_abs_err": err,
+                                          "max_abs_err_unmasked": unmasked,
+                                          "well_conditioned_share": share, "vs_full": full_err})
+        vs_full = "" if full_err is None else f", vs full frame {full_err:.3g}"
+        log(f"  {name} sweep {'x'.join(map(str, shape))} C={md}: max|err| {err:.3g} on "
+            f"{share:.3f} of the pixels, unmasked {unmasked:.3g}{vs_full}")
 
     for shape in K1_SHAPES:
         a, b = t(rng.rand(*shape)), t(rng.rand(*shape))
@@ -362,69 +433,104 @@ def phase_kernels(device, iters=20):
         ms, pms = time_pair(lambda: pyr_down_plain(x), lambda: pyr_down_cuda(x), iters)
         record("pyrdown", shape, err, ms, pms, ATOL_PYRDOWN, kernel_cost("pyrdown", [x], [y1]),
                device_ms=use_once(pyr_down_cuda, (x,), [(0.0, 255.0)]))
+    kw3 = dict(max_disp=C, clamp=CLAMP)
     for shape in K3_SHAPES:
         H, W = shape
         a, b = t(rng.rand(H, W)), t(rng.rand(H, W))
         uc, vc = (t(f) for f in smooth_flow(rng, (H // 2, W // 2), 2.0))
-        kw = dict(max_disp=C, clamp=CLAMP)
-        (u1, v1), (u0, v0) = pyrup_warp_lk_cuda(a, b, uc, vc, **kw), pyrup_warp_lk_plain(a, b, uc, vc, **kw)
+        out, ref = pyrup_warp_lk_cuda(a, b, uc, vc, **kw3), pyrup_warp_lk_plain(a, b, uc, vc, **kw3)
         torch.cuda.synchronize()
-        upu, upv = 2.0 * pyr_up_cols_first(uc), 2.0 * pyr_up_cols_first(vc)
-        m = well_conditioned(*warped(a, b, -upu.clamp(-CLAMP, CLAMP), -upv.clamp(-CLAMP, CLAMP)))
-        err = max(masked_err(u1, u0, m), masked_err(v1, v0, m))
-        ms, pms = time_pair(lambda: pyrup_warp_lk_plain(a, b, uc, vc, **kw),
-                            lambda: pyrup_warp_lk_cuda(a, b, uc, vc, **kw), iters)
-        record("pyrup_warp_lk", shape, err, ms, pms, ATOL_LK,
-               kernel_cost("pyrup_warp_lk", [a, b, uc, vc], [u1, v1]),
-               device_ms=use_once(pyrup_warp_lk_cuda, (a, b, uc, vc), FLOW_RANGES, **kw))
+        err, unmasked = pair_errors(out, ref, k3_mask(a, b, uc, vc, C, CLAMP))
+        ms, pms = time_pair(lambda: pyrup_warp_lk_plain(a, b, uc, vc, **kw3),
+                            lambda: pyrup_warp_lk_cuda(a, b, uc, vc, **kw3), iters)
+        record("pyrup_warp_lk", shape, err, ms, pms, ATOL_WARP_LK,
+               kernel_cost("pyrup_warp_lk", [a, b, uc, vc], list(out)),
+               device_ms=use_once(pyrup_warp_lk_cuda, (a, b, uc, vc), FLOW_RANGES, **kw3),
+               unmasked=unmasked)
+    kw4 = dict(max_disp=C, clamp=CLAMP, negate=True)
     for shape in K4_SHAPES:
         a, b = t(rng.rand(*shape)), t(rng.rand(*shape))
         u, v = (t(f) for f in smooth_flow(rng, shape, 2.0))
-        kw = dict(max_disp=C, clamp=CLAMP, negate=True)
-        (u1, v1), (u0, v0) = warp_lk_cuda(a, b, u, v, **kw), warp_lk_plain(a, b, u, v, **kw)
+        out, ref = warp_lk_cuda(a, b, u, v, **kw4), warp_lk_plain(a, b, u, v, **kw4)
         torch.cuda.synchronize()
-        m = well_conditioned(*warped(a, b, -u.clamp(-CLAMP, CLAMP), -v.clamp(-CLAMP, CLAMP)))
-        err = max(masked_err(u1, u0, m), masked_err(v1, v0, m))
-        ms, pms = time_pair(lambda: warp_lk_plain(a, b, u, v, **kw),
-                            lambda: warp_lk_cuda(a, b, u, v, **kw), iters)
-        record("warp_lk", shape, err, ms, pms, ATOL_LK, kernel_cost("warp_lk", [a, b, u, v], [u1, v1]),
-               device_ms=use_once(warp_lk_cuda, (a, b, u, v), FLOW_RANGES, **kw))
-    for shape in K5_WARP_SHAPES:
+        err, unmasked = pair_errors(out, ref, k4_mask(a, b, u, v, C, CLAMP))
+        ms, pms = time_pair(lambda: warp_lk_plain(a, b, u, v, **kw4),
+                            lambda: warp_lk_cuda(a, b, u, v, **kw4), iters)
+        record("warp_lk", shape, err, ms, pms, ATOL_WARP_LK,
+               kernel_cost("warp_lk", [a, b, u, v], list(out)),
+               device_ms=use_once(warp_lk_cuda, (a, b, u, v), FLOW_RANGES, **kw4),
+               unmasked=unmasked)
+
+    def k5_warp_calls(shape, md, scale):
         a, b = t(rng.rand(*shape)), t(rng.rand(*shape))
-        u, v = (t(f) for f in smooth_flow(rng, shape, 2.0))
-        kw = dict(max_disp=C, clamp=CLAMP, negate=True)
+        u, v = (t(f) for f in smooth_flow(rng, shape, scale))
+        kw = dict(max_disp=md, clamp=2.0 * md, negate=True)
         full = warp_lk_cuda(a, b, u, v, **kw)
-        m = well_conditioned(*warped(a, b, -u.clamp(-CLAMP, CLAMP), -v.clamp(-CLAMP, CLAMP)))
-        calls = tile_calls([exchange_halo(split(x, mesh), C + 2, border="zero")
-                            for x in (a, b, u, v)], shape)
-        err, full_err = tile_errors(calls, warp_lk_cuda, warp_lk_plain, kw, full, m)
-        ms, pms = time_pair(each_tile(warp_lk_plain, calls, kw), each_tile(warp_lk_cuda, calls, kw),
-                            iters)
-        record("warp_lk_tile", shape, err, ms, pms, ATOL_LK, tile_cost("warp_lk", calls, shape),
-               full_err)
-    for shape in K5_PYRUP_SHAPES:
+        calls = tile_calls([exchange_halo(split(x, mesh), md + 2, border="zero")
+                            for x in (a, b, u, v)], shape, md)
+        return calls, kw, full, k4_mask(a, b, u, v, md, 2.0 * md)
+
+    def k5_pyrup_calls(shape, md, scale):
         H, W = shape
         a, b = t(rng.rand(H, W)), t(rng.rand(H, W))
-        uc, vc = (t(f) for f in smooth_flow(rng, (H // 2, W // 2), 2.0))
-        kw = dict(max_disp=C, clamp=CLAMP)
+        uc, vc = (t(f) for f in smooth_flow(rng, (H // 2, W // 2), scale))
+        kw = dict(max_disp=md, clamp=2.0 * md)
         full = pyrup_warp_lk_cuda(a, b, uc, vc, **kw)
-        upu, upv = 2.0 * pyr_up_cols_first(uc), 2.0 * pyr_up_cols_first(vc)
-        m = well_conditioned(*warped(a, b, -upu.clamp(-CLAMP, CLAMP), -upv.clamp(-CLAMP, CLAMP)))
-        ext = [exchange_halo(split(x, mesh), C + 2, border="zero") for x in (a, b)]
-        ext += [exchange_halo_pyrup(split(x, mesh), pyrup_coarse_halo(C), 2) for x in (uc, vc)]
-        calls = tile_calls(ext, shape)
-        err, full_err = tile_errors(calls, pyrup_warp_lk_cuda, pyrup_warp_lk_plain, kw, full, m)
-        ms, pms = time_pair(each_tile(pyrup_warp_lk_plain, calls, kw),
-                            each_tile(pyrup_warp_lk_cuda, calls, kw), iters)
-        record("pyrup_warp_lk_tile", shape, err, ms, pms, ATOL_LK,
-               tile_cost("pyrup_warp_lk", calls, shape), full_err)
+        ext = [exchange_halo(split(x, mesh), md + 2, border="zero") for x in (a, b)]
+        ext += [exchange_halo_pyrup(split(x, mesh), pyrup_coarse_halo(md), 2) for x in (uc, vc)]
+        return tile_calls(ext, shape, md), kw, full, k3_mask(a, b, uc, vc, md, 2.0 * md)
+
+    k5 = {"warp_lk_tile": ("warp_lk", warp_lk_cuda, warp_lk_plain, k5_warp_calls),
+          "pyrup_warp_lk_tile": ("pyrup_warp_lk", pyrup_warp_lk_cuda, pyrup_warp_lk_plain,
+                                 k5_pyrup_calls)}
+    for name, shapes in (("warp_lk_tile", K5_WARP_SHAPES), ("pyrup_warp_lk_tile", K5_PYRUP_SHAPES)):
+        kind, kernel, plain, make = k5[name]
+        for shape in shapes:
+            calls, kw, full, m = make(shape, C, 2.0)
+            err, unmasked, full_err = tile_errors(calls, kernel, plain, kw, full, m)
+            ms, pms = time_pair(each_tile(plain, calls, kw), each_tile(kernel, calls, kw), iters)
+            record(name, shape, err, ms, pms, ATOL_WARP_LK, tile_cost(kind, calls, shape), full_err,
+                   device_ms=tile_use_once(kernel, calls, kw), unmasked=unmasked)
+
+    # the ragged and C sweep (not timed)
+    for md in SWEEP_C:
+        kw = dict(max_disp=md, clamp=2.0 * md)
+        for shape in K3_SWEEP:
+            a, b = t(rng.rand(*shape)), t(rng.rand(*shape))
+            uc, vc = flow_pair(shape[:-2] + (shape[-2] // 2, shape[-1] // 2), 1.5 * md)
+            out, ref = pyrup_warp_lk_cuda(a, b, uc, vc, **kw), pyrup_warp_lk_plain(a, b, uc, vc, **kw)
+            torch.cuda.synchronize()
+            m = k3_mask(a, b, uc, vc, md, 2.0 * md)
+            sweep("pyrup_warp_lk", shape, md, *pair_errors(out, ref, m), m)
+        for shape in K4_SWEEP:
+            a, b = t(rng.rand(*shape)), t(rng.rand(*shape))
+            u, v = flow_pair(shape, 3.0 * md)
+            out, ref = warp_lk_cuda(a, b, u, v, **kw), warp_lk_plain(a, b, u, v, **kw)
+            torch.cuda.synchronize()
+            m = k4_mask(a, b, u, v, md, 2.0 * md)
+            sweep("warp_lk", shape, md, *pair_errors(out, ref, m), m)
+        for name, shape in K5_SWEEP.items():
+            kind, kernel, plain, make = k5[name]
+            calls, kw5, full, m = make(shape, md, (1.5 if kind == "pyrup_warp_lk" else 3.0) * md)
+            err, unmasked, full_err = tile_errors(calls, kernel, plain, kw5, full, m)
+            sweep(name, shape, md, err, unmasked, m, full_err)
+
+    # P1 and its library call in turns, each round on use-once inputs
     x = t(rng.rand(*P1_TILE))
     y1, y0 = tile_copy_cuda(x), tile_copy_plain(x)
     torch.cuda.synchronize()
     ms, pms = time_pair(lambda: tile_copy_plain(x), lambda: tile_copy_cuda(x), iters)
+    runs = {"p1": [], "clone": []}
+    for k in range(P1_ROUNDS):
+        turn = [("p1", tile_copy_cuda), ("clone", torch.clone)]
+        for which, fn in turn if k % 2 == 0 else turn[::-1]:
+            runs[which].append(use_once(fn, (x,)))
     record("tile_copy", P1_TILE, float((y1 - y0).abs().max()), ms, pms, 0.0,
-           kernel_cost("copy", [x], [y1]), library_ms=use_once(torch.clone, (x,)),
-           device_ms=use_once(tile_copy_cuda, (x,)))
+           kernel_cost("copy", [x], [y1]), library_ms=float(np.median(runs["clone"])),
+           device_ms=float(np.median(runs["p1"])))
+    results["tile_copy"].update(device_ms_runs=runs["p1"], library_ms_runs=runs["clone"])
+    log(f"  tile_copy rounds: P1 {[round(v * 1e3, 2) for v in runs['p1']]} us, "
+        f"clone {[round(v * 1e3, 2) for v in runs['clone']]} us")
     torch.cuda.synchronize()
     return results
 
@@ -906,6 +1012,10 @@ def main() -> int:
     path = _lib.build()
     _lib.library()
     log(f"[2 build] {path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in _lib.ptxas_info("warp_lk_kernel"):
+        m = re.search(r"warp_lk_kernelILb(\d)ELb(\d)ELi(\d+)E", line)
+        log(f"  ptxas warp_lk_kernel<pyrup={m[1]}, tile={m[2]}, rows={m[3]}>: {line.split(': ', 1)[1]}"
+            if m else f"  ptxas {line}")
 
     per_kernel = phase_kernels(device)
     log("[3 kernels] all kernels agree with their plain versions")
@@ -1005,6 +1115,9 @@ def main() -> int:
                "share_of_bound": roof.get("share_of_bound"),
                "sustained_ms": roof["sustained_ms"], "sustained_by": roof["sustained_by"],
                "share_of_sustained": roof.get("share_of_sustained")}
+        for key in ("max_abs_err_unmasked", "device_ms_runs", "library_ms_runs", "sweep"):
+            if key in r:
+                row[key] = r[key]
         if len(entries) > 1:
             row["launches_by_entry"] = {e: runs[run][e] for e in entries}
             row["variants_ms"] = r["variants"]

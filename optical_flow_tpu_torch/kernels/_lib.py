@@ -14,6 +14,9 @@ approximate and flush denormals.
 
 Each C entry point returns ``cudaGetLastError()``; ``launch`` raises if it
 is not 0 and otherwise adds one to the kernel's count in ``launches``.
+
+What the compiler allotted each kernel (``ptxas -v``: registers, shared
+memory, spills) is kept beside the library (``ptxas_info``).
 """
 
 from __future__ import annotations
@@ -99,7 +102,8 @@ def build() -> Path:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
     compiles = [
-        [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)] for s, o in zip(SOURCES, objs)
+        [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o), str(CSRC / s)]
+        for s, o in zip(SOURCES, objs)
     ]
     procs = []
     try:
@@ -122,7 +126,25 @@ def build() -> Path:
     for cmd, output, rc in results:
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{output}")
+    _ptxas_path(out).write_text("".join(output for _, output, _ in results[: len(SOURCES)]))
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    return out
+
+
+def _ptxas_path(lib: Path) -> Path:
+    return lib.with_name(lib.name + ".ptxas.txt")
+
+
+def ptxas_info(kernel: str) -> list:
+    """The ``ptxas -v`` lines of the built library's kernels whose mangled
+    name contains ``kernel``: one "<name>: <registers and memory>" each."""
+    path = _ptxas_path(build())
+    out, name = [], None
+    for line in path.read_text().splitlines() if path.exists() else []:
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else None
+        elif name and kernel in name and ("registers" in line or "spill" in line):
+            out.append(f"{name}: {line.split('ptxas info    :')[-1].strip()}")
     return out
 
 

@@ -1,11 +1,12 @@
 // Device code shared by the port's kernels (lk.cu, pyrdown.cu, warp_lk.cu).
 //
-// Every kernel works on (B, H, W) float32 planes, one thread per output
-// pixel over a TH x TW tile, with the tile and its halo staged in shared
-// memory. The arithmetic follows the plain PyTorch versions operation for
-// operation (same operands, same order), and the library is built with
-// -fmad=false and without --use_fast_math, so each product and sum rounds
-// as it does in eager PyTorch and '/' is the IEEE division.
+// Every kernel works on (B, H, W) float32 planes. K1 and K2 take one thread
+// per output pixel over a TH x TW tile, with the tile and its halo staged in
+// shared memory (warp_lk.cu has its own tile shape). The arithmetic follows
+// the plain PyTorch versions operation for operation (same operands, same
+// order), and the library is built with -fmad=false and without
+// --use_fast_math, so each product and sum rounds as it does in eager
+// PyTorch and '/' is the IEEE division.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -49,30 +50,53 @@ __device__ __forceinline__ float quant_half(float f, float clamp, float half, fl
   return rintf(h * 32.0f) / 32.0f;
 }
 
-// 2x2 gradients of both staged planes -> the five products fx^2, fy^2,
-// fx*fy, fx*ft, fy*ft at every gradient position of the tile.
+// The five products fx^2, fy^2, fx*fy, fx*ft, fy*ft of the 2x2 gradients at
+// one position: (a, b) the upper row of each plane, (c, d) the lower one.
+__device__ __forceinline__ void lk_grad_products(float a1, float b1, float c1, float d1, float a2,
+                                                 float b2, float c2, float d2, float* p) {
+  const float fx = (((b1 - a1) + d1) - c1) + (((b2 - a2) + d2) - c2);
+  const float fy = (((c1 + d1) - a1) - b1) + (((c2 + d2) - a2) - b2);
+  const float ft = (((a2 + b2) + c2) + d2) - (((a1 + b1) + c1) + d1);
+  p[0] = fx * fx;
+  p[1] = fy * fy;
+  p[2] = fx * fy;
+  p[3] = fx * ft;
+  p[4] = fy * ft;
+}
+
+// 2x2 gradients of both staged planes -> the five products at every
+// gradient position of the tile.
 // s1/s2: SH x SW planes; prod: 5 consecutive PH x PW planes.
 __device__ __forceinline__ void lk_products(const float* s1, const float* s2, float* prod) {
   for (int i = threadIdx.x; i < PH * PW; i += NT) {
     const int gy = i / PW, gx = i % PW;
     const int o = gy * SW + gx;
-    const float a1 = s1[o], b1 = s1[o + 1], c1 = s1[o + SW], d1 = s1[o + SW + 1];
-    const float a2 = s2[o], b2 = s2[o + 1], c2 = s2[o + SW], d2 = s2[o + SW + 1];
-    const float fx = (((b1 - a1) + d1) - c1) + (((b2 - a2) + d2) - c2);
-    const float fy = (((c1 + d1) - a1) - b1) + (((c2 + d2) - a2) - b2);
-    const float ft = (((a2 + b2) + c2) + d2) - (((a1 + b1) + c1) + d1);
-    prod[0 * PH * PW + i] = fx * fx;
-    prod[1 * PH * PW + i] = fy * fy;
-    prod[2 * PH * PW + i] = fx * fy;
-    prod[3 * PH * PW + i] = fx * ft;
-    prod[4 * PH * PW + i] = fy * ft;
+    float p[5];
+    lk_grad_products(s1[o], s1[o + 1], s1[o + SW], s1[o + SW + 1], s2[o], s2[o + 1], s2[o + SW],
+                     s2[o + SW + 1], p);
+#pragma unroll
+    for (int k = 0; k < 5; ++k) prod[k * PH * PW + i] = p[k];
   }
+}
+
+// The Cramer solve of the five window sums s at global (gy, gx) in an
+// H x W frame, det == 0 -> 0 (cv::divide), and the frame's 1-px ring
+// zeroed.
+__device__ __forceinline__ void lk_cramer(const float* s, int gy, int gx, int H, int W, float* u,
+                                          float* v) {
+  const float det = s[0] * s[1] - s[2] * s[2];
+  const bool ok = det != 0.0f;
+  const float den = ok ? det : 1.0f;
+  const float uu = (ok ? s[2] * s[4] - s[1] * s[3] : 0.0f) / den;
+  const float vv = (ok ? s[3] * s[2] - s[0] * s[4] : 0.0f) / den;
+  const bool keep = gy > 0 && gy < H - 1 && gx > 0 && gx < W - 1;
+  *u = keep ? uu : 0.0f;
+  *v = keep ? vv : 0.0f;
 }
 
 // The LK tail at tile position (ty, tx), global (gy, gx) in an H x W frame:
 // 3x3 window sums (rows first, then columns, as
-// ops/window.sum3x3_interior), the Cramer solve with det == 0 -> 0
-// (cv::divide), and the frame's 1-px ring zeroed.
+// ops/window.sum3x3_interior), then lk_cramer.
 __device__ __forceinline__ void lk_solve(const float* prod, int ty, int tx, int gy, int gx,
                                          int H, int W, float* u, float* v) {
   float s[5];
@@ -84,34 +108,7 @@ __device__ __forceinline__ void lk_solve(const float* prod, int ty, int tx, int 
     const float r2 = (p[2] + p[PW + 2]) + p[2 * PW + 2];
     s[k] = (r0 + r1) + r2;
   }
-  const float det = s[0] * s[1] - s[2] * s[2];
-  const bool ok = det != 0.0f;
-  const float den = ok ? det : 1.0f;
-  const float uu = (ok ? s[2] * s[4] - s[1] * s[3] : 0.0f) / den;
-  const float vv = (ok ? s[3] * s[2] - s[0] * s[4] : 0.0f) / den;
-  const bool keep = gy > 0 && gy < H - 1 && gx > 0 && gx < W - 1;
-  *u = keep ? uu : 0.0f;
-  *v = keep ? vv : 0.0f;
-}
-
-// One row of the separable symmetric warp: the x-pass value of `img` at
-// row r, column c, for the quantized half-flow qx read at (r, c). sgn = +1
-// samples at c + d (image 1), -1 at c - d (image 2). Only the two taps
-// k0 = floor(qx) and k0 + 1 carry weight, so this equals the 2C+1-tap
-// shift_sep sum exactly (the other taps add exact zeros). `img` points at
-// pixel (0, 0) with row stride `ld`; the readable region is rows
-// [lo, Hh) x columns [lo, Wh) (a full frame: lo = 0; a halo-extended tile:
-// lo = -halo) and the source is 0 outside it.
-__device__ __forceinline__ float shift_row(const float* img, int ld, float qx, int r, int c,
-                                           int sgn, int lo, int Hh, int Wh) {
-  if (r < lo || r >= Hh) return 0.0f;
-  const float kf = floorf(qx);
-  const int k = (int)kf;
-  const float f = qx - kf;
-  const int c0 = c + sgn * k, c1 = c + sgn * (k + 1);
-  const float v0 = (c0 >= lo && c0 < Wh) ? img[r * ld + c0] : 0.0f;
-  const float v1 = (c1 >= lo && c1 < Wh) ? img[r * ld + c1] : 0.0f;
-  return (1.0f - f) * v0 + f * v1;
+  lk_cramer(s, gy, gx, H, W, u, v);
 }
 
 }  // namespace oft

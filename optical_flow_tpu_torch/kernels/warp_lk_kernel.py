@@ -11,10 +11,13 @@ at :667): the corrected pyramid's whole inter-level step, up = 2 *
 pyrUp(coarse flow) -> K4 with negate -> (du + up_u, dv + up_v). Its plain
 version is ``pyrup_warp_lk_plain``.
 
-In both, the warped frames stay in shared memory; only the frames and the
-flow are read and only the result is written. The TPU kernels' band and
-VMEM rules do not apply on the card: K4 takes any shape, K3 any even H, W
-with the coarse flow exactly half.
+In both, the frames, the flow and the warped values stay in shared memory
+and registers; only the frames and the flow are read and only the result is
+written. The TPU kernels' band and VMEM rules do not apply on the card: K4
+takes any shape, K3 any even H, W with the coarse flow exactly half. A
+block's shared memory grows with ``max_disp`` (C); a C whose block does not
+fit in the card's shared memory is refused at launch and the wrapper raises
+(on an H100 every C up to 49 fits).
 
 K5, the tile mode (``halo``, ``origin``, ``global_hw``, the JAX keywords),
 serves the mesh-sharded path (parallel/sharded_warp_lk.py): the inputs are

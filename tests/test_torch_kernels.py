@@ -76,9 +76,10 @@ def _well_conditioned(w1, w2):
     return np.asarray(jnp.abs(det) > 1e-6 * jnp.maximum(jnp.max(jnp.abs(det)), 1.0))
 
 
-def _close_where(ok, a, b, atol):
+def _close_where(ok, a, b, atol, rtol=1e-7):
     z = np.zeros((), np.float32)
-    np.testing.assert_allclose(np.where(ok, _np(a), z), np.where(ok, _np(b), z), atol=atol)
+    np.testing.assert_allclose(np.where(ok, _np(a), z), np.where(ok, _np(b), z), atol=atol,
+                               rtol=rtol)
 
 
 # ---------------------------------------------------------------- K1: lk
@@ -130,11 +131,12 @@ def test_pyrdown_plain_matches_jax(shape):
 CLAMP, C = 8.0, 4  # the production operating point (warp_clamp=8 -> max_disp 4)
 
 
-def _j_pyrup_unfused(img1, img2, uc, vc):
+def _j_pyrup_unfused(img1, img2, uc, vc, max_disp=C, clamp=CLAMP):
     upu = 2.0 * j_pyr_up_cf(uc)
     upv = 2.0 * j_pyr_up_cf(vc)
-    wu, wv = -jnp.clip(upu, -CLAMP, CLAMP), -jnp.clip(upv, -CLAMP, CLAMP)
-    w1, w2 = j_symmetric_warp(img1, img2, wu, wv, quantize=True, impl="shift_sep", max_disp=C)
+    wu, wv = -jnp.clip(upu, -clamp, clamp), -jnp.clip(upv, -clamp, clamp)
+    w1, w2 = j_symmetric_warp(img1, img2, wu, wv, quantize=True, impl="shift_sep",
+                              max_disp=max_disp)
     du, dv = lucas_kanade_jnp(w1, w2)
     return du + upu, dv + upv
 
@@ -145,23 +147,36 @@ def _quantiles_ok(a, b, atol=3e-4):
     assert np.quantile(d, 0.95) < 0.05, np.quantile(d, 0.95)
 
 
-@pytest.mark.parametrize("shape", [(64, 96), (48, 40), (2, 32, 130), (52, 38)])
-def test_pyrup_warp_lk_plain_matches_jax(shape):
+# Geometries that leave partial blocks of the CUDA kernel's tiles (29 columns,
+# 32 or 64 rows), at tap reaches C = 1 and 8 (clamp 2C, the coarse flow scaled
+# by 1.5 C so that the quantized half-flow reaches +-C).
+_K3_RAGGED = [(2, 270, 270), (2, 134, 198), (52, 38)]
+
+
+@pytest.mark.parametrize(
+    "shape,max_disp,scale",
+    [pytest.param(s, C, 2.0, id=f"shape{i}")
+     for i, s in enumerate([(64, 96), (48, 40), (2, 32, 130), (52, 38)])]
+    + [pytest.param(s, md, 1.5 * md, id=f"{'x'.join(map(str, s))}-C{md}")
+       for md in (1, 8) for s in _K3_RAGGED],
+)
+def test_pyrup_warp_lk_plain_matches_jax(shape, max_disp, scale):
     from optical_flow_tpu.kernels.warp_lk_kernel import pyrup_warp_lk_pallas
 
     H, W = shape[-2:]
+    clamp = 2.0 * max_disp
     rng = np.random.RandomState(0)
     img1 = rng.rand(*shape).astype(np.float32)
     img2 = rng.rand(*shape).astype(np.float32)
     cshape = shape[:-2] + (H // 2, W // 2)
-    uc = (rng.randn(*cshape) * 2.0).astype(np.float32)
-    vc = (rng.randn(*cshape) * 2.0).astype(np.float32)
-    u, v = pyrup_warp_lk_cuda(_t(img1), _t(img2), _t(uc), _t(vc), max_disp=C, clamp=CLAMP)
+    uc = (rng.randn(*cshape) * scale).astype(np.float32)
+    vc = (rng.randn(*cshape) * scale).astype(np.float32)
+    u, v = pyrup_warp_lk_cuda(_t(img1), _t(img2), _t(uc), _t(vc), max_disp=max_disp, clamp=clamp)
     j = [jnp.asarray(x) for x in (img1, img2, uc, vc)]
-    u0, v0 = _j_pyrup_unfused(*j)
+    u0, v0 = _j_pyrup_unfused(*j, max_disp=max_disp, clamp=clamp)
     _quantiles_ok(u, u0)
     _quantiles_ok(v, v0)
-    u1, v1 = _interpret(pyrup_warp_lk_pallas, *j, max_disp=C, clamp=CLAMP)
+    u1, v1 = _interpret(pyrup_warp_lk_pallas, *j, max_disp=max_disp, clamp=clamp)
     _quantiles_ok(u, u1)
     _quantiles_ok(v, v1)
 
@@ -199,6 +214,11 @@ def _j_warp_lk_unfused(img1, img2, u, v, *, max_disp, clamp, negate):
         ((61, 37), 5, 8.0, True, 2.0, 0),  # odd H and W
         ((40, 64), 5, 8.0, True, 30.0, 3),  # flow beyond the clamp
         ((32, 48), 3, 4.0, False, 1.5, 7),  # reference (non-negated) direction
+        # ragged for the CUDA kernel's tiles, at C = 1 and 8 (|k| reaches C)
+        ((2, 61, 37), 1, 2.0, True, 3.0, 11),
+        ((2, 61, 37), 8, 16.0, True, 24.0, 11),
+        ((1080, 1000), 1, 2.0, True, 3.0, 12),
+        ((1080, 1000), 8, 16.0, True, 24.0, 12),
     ],
 )
 def test_warp_lk_plain_matches_jax(shape, max_disp, clamp, negate, scale, seed):
@@ -217,8 +237,21 @@ def test_warp_lk_plain_matches_jax(shape, max_disp, clamp, negate, scale, seed):
     _close_where(ok, du, du0, 2e-5)
     _close_where(ok, dv, dv0, 2e-5)
     du1, dv1 = _interpret(warp_lk_pallas, *j, **kw)
-    _close_where(ok, du, du1, 2e-5)
-    _close_where(ok, dv, dv1, 2e-5)
+    if max_disp > 5:
+        # A reach beyond the production clamp (C = 8) warps the random frames
+        # by up to 8 px and LK's outputs reach tens of px (float32's spacing
+        # at 32 px is 3.8e-6), so the Pallas kernel is held at 2e-6 relative
+        # too, and away from the frame's first three rows and columns: there
+        # its REFLECT_101 fix departs from its own jnp composition (which the
+        # port equals) by up to 1e-3 at this reach (ROADMAP.md, Queue 3).
+        ok = ok.copy()
+        ok[..., :3, :] = False
+        ok[..., :, :3] = False
+        _close_where(ok, du, du1, 2e-5, 2e-6)
+        _close_where(ok, dv, dv1, 2e-5, 2e-6)
+    else:
+        _close_where(ok, du, du1, 2e-5)
+        _close_where(ok, dv, dv1, 2e-5)
 
 
 def test_warp_lk_zero_flow_is_plain_lk():
@@ -299,41 +332,70 @@ def test_pyrdown_kernel_on_card(cuda_device):
         torch.testing.assert_close(got, pyr_down_plain(x), atol=2e-3, rtol=0)
 
 
+# the ragged and C sweep on the card: (shape, C), clamp 2C, flows that reach C
+_SWEEP_C = (1, 4, 8)
+_K4_RAGGED = [(2, 61, 37), (1080, 1000)]
+
+
 @pytest.mark.cuda
 def test_pyrup_warp_lk_kernel_on_card(cuda_device):
+    """K3 follows its plain version operation for operation: max |err| 0 on
+    the well-conditioned pixels, at the main path's shape and the ragged
+    and C sweep (both strip heights of the kernel's tile)."""
     from optical_flow_tpu_torch.ops.pyramid import pyr_up_cols_first
     from optical_flow_tpu_torch.ops.warp import symmetric_warp
 
     rng = np.random.RandomState(3)
-    for H, W in [(540, 540), (52, 38)]:
-        a, b = _on(cuda_device, rng, H, W), _on(cuda_device, rng, H, W)
-        uc = (_on(cuda_device, rng, H // 2, W // 2) - 0.5) * 8.0
-        vc = (_on(cuda_device, rng, H // 2, W // 2) - 0.5) * 8.0
+    cases = [((540, 540), C, 8.0), ((52, 38), C, 8.0)]
+    cases += [(s, md, 4.0 * md) for md in _SWEEP_C for s in _K3_RAGGED]
+    for shape, md, scale in cases:
+        cl = 2.0 * md
+        cshape = shape[:-2] + (shape[-2] // 2, shape[-1] // 2)
+        a, b = _on(cuda_device, rng, *shape), _on(cuda_device, rng, *shape)
+        uc = (_on(cuda_device, rng, *cshape) - 0.5) * scale
+        vc = (_on(cuda_device, rng, *cshape) - 0.5) * scale
         u, v = _counted("oft_pyrup_warp_lk",
-                        lambda: pyrup_warp_lk_cuda(a, b, uc, vc, max_disp=C, clamp=CLAMP))
-        u0, v0 = pyrup_warp_lk_plain(a, b, uc, vc, max_disp=C, clamp=CLAMP)
+                        lambda: pyrup_warp_lk_cuda(a, b, uc, vc, max_disp=md, clamp=cl))
+        u0, v0 = pyrup_warp_lk_plain(a, b, uc, vc, max_disp=md, clamp=cl)
         upu, upv = 2.0 * pyr_up_cols_first(uc), 2.0 * pyr_up_cols_first(vc)
-        w1, w2 = symmetric_warp(a, b, -upu.clamp(-CLAMP, CLAMP), -upv.clamp(-CLAMP, CLAMP),
-                                impl="shift_sep", max_disp=C)
+        w1, w2 = symmetric_warp(a, b, -upu.clamp(-cl, cl), -upv.clamp(-cl, cl),
+                                impl="shift_sep", max_disp=md)
         ok = _ok_mask(w1, w2)
-        _masked_equal(ok, u, u0, 2e-5)
-        _masked_equal(ok, v, v0, 2e-5)
+        _masked_equal(ok, u, u0, 0.0)
+        _masked_equal(ok, v, v0, 0.0)
 
 
 @pytest.mark.cuda
 def test_warp_lk_kernel_on_card(cuda_device):
+    """K4, as K3: max |err| 0 on the well-conditioned pixels."""
     from optical_flow_tpu_torch.ops.warp import symmetric_warp
 
     rng = np.random.RandomState(4)
-    for shape, md, cl in [((1080, 1080), 4, 8.0), ((2, 61, 37), 5, 8.0)]:
+    cases = [((1080, 1080), 4, 8.0, 12.0), ((2, 61, 37), 5, 8.0, 12.0)]
+    cases += [(s, md, 2.0 * md, 6.0 * md) for md in _SWEEP_C for s in _K4_RAGGED]
+    for shape, md, cl, scale in cases:
         a, b = _on(cuda_device, rng, *shape), _on(cuda_device, rng, *shape)
-        u = (_on(cuda_device, rng, *shape) - 0.5) * 12.0
-        v = (_on(cuda_device, rng, *shape) - 0.5) * 12.0
+        u = (_on(cuda_device, rng, *shape) - 0.5) * scale
+        v = (_on(cuda_device, rng, *shape) - 0.5) * scale
         du, dv = _counted("oft_warp_lk",
                           lambda: warp_lk_cuda(a, b, u, v, max_disp=md, clamp=cl))
         du0, dv0 = warp_lk_plain(a, b, u, v, max_disp=md, clamp=cl)
         w1, w2 = symmetric_warp(a, b, -u.clamp(-cl, cl), -v.clamp(-cl, cl),
                                 impl="shift_sep", max_disp=md)
         ok = _ok_mask(w1, w2)
-        _masked_equal(ok, du, du0, 2e-5)
-        _masked_equal(ok, dv, dv0, 2e-5)
+        _masked_equal(ok, du, du0, 0.0)
+        _masked_equal(ok, dv, dv0, 0.0)
+
+
+@pytest.mark.cuda
+def test_warp_lk_kernels_refuse_a_reach_beyond_shared_memory(cuda_device):
+    """A block's shared memory grows with C; a C whose block does not fit
+    raises and launches nothing (no smaller tile is taken instead)."""
+    a = torch.rand(64, 64, device=cuda_device)
+    c = torch.rand(32, 32, device=cuda_device)
+    before = launch_counts()
+    with pytest.raises(RuntimeError):
+        warp_lk_cuda(a, a, a, a, max_disp=64, clamp=128.0)
+    with pytest.raises(RuntimeError):
+        pyrup_warp_lk_cuda(a, a, c, c, max_disp=64, clamp=128.0)
+    assert launch_counts() == before
