@@ -17,8 +17,11 @@ Phases, each printing one line (any failure raises and exits non-zero):
      (max |err| must be 0), timed as one frame's four tiles; K3-K5 held to
      max |err| 0 (the unmasked max |err| printed beside it), also over a
      ragged and C sweep (shapes that leave partial blocks, C = 1, 4, 8);
-     and P1 (the mesh probe's copy kernel) on the probe's tiles, in turns
-     with ``clone`` over several rounds;
+     K2 per level and as the one-call pyramid of a 1080^2 frame (4
+     levels), bit for bit, also over ragged and tiny planes and a pyramid to
+     1x1; and P1 (the mesh probe's copy kernel) on the probe's tiles, in
+     turns with ``clone`` over several rounds, and bit for bit at ragged
+     lengths and an unaligned start;
   4. the slice: VideoPipeline(VideoConfig.fast()) on 12 synthetic 720x1280
      BGR frames, once through the kernels and once on the plain path, flows
      compared by quantiles and gesture votes within 1%, exact launch counts;
@@ -46,13 +49,18 @@ Phases, each printing one line (any failure raises and exits non-zero):
      at their own shapes; then the copy rate (S2) and float32 elementwise
      rate (S4) that the card sustains at sizes that fill it many times over.
 Phase 3 also holds S1 at the three upsamples of a 1080^2 frame and K1 at
-every level of the reference path. Launch counters are reset just before
-the runs of phases 4, 5, 7, 8, 9 and 10 and read just after each. Then one
+every level of the reference path, and times the one PyTorch call that
+computes K2's and S1's function (cuDNN convolutions, TF32 off; the
+pyramid's: one a level). At the end, whether the pyramid's grids (one a
+level, programmatic dependent launch) can be captured into a CUDA graph
+(reported, not required). Launch counters are reset just before the runs
+of phases 4, 5, 7, 8, 9 and 10 and read just after each. Then one
 JSON line with the kernels (each with its least time on the card, from
 utils/profiling's byte and operation model against the published H100
 peaks, its time at the rates phase 10 sustained, its device time on
 use-once inputs where measured, and, where one PyTorch call computes the
-same function, that call's time), and as the
+same function, that call's time; K2 in one row, its pyramid call, with the
+single levels in its by_shape), and as the
 last line {"ok": true, "device": {...}}. It needs one CUDA device and no
 network.
 """
@@ -74,6 +82,11 @@ SIZE = 1080
 # main-path shapes per 1080^2 frame (4 levels: 1080, 540, 270, 135)
 K1_SHAPES = [(135, 135), (270, 270), (540, 540), (1080, 1080)]  # 135^2 fast, all: reference
 K2_SHAPES = [(1080, 1080), (540, 540), (270, 270)]
+PYRAMID = ((SIZE, SIZE), 4)  # the main path's pyramid: one oft_pyramid call a frame
+# K2's ragged and tiny cases (not timed): (shape, levels) pyramids, one of
+# them to 1x1, and single levels
+K2_SWEEP_PYRAMIDS = [((1024, 1024), 11), ((2, 135, 271), 10), ((3, 7), 3), ((1, 1), 3)]
+K2_SWEEP_LEVELS = [(135, 271), (2, 61, 37), (3, 7), (1, 1)]
 K3_SHAPES = [(270, 270), (540, 540), (1080, 1080)]
 K4_SHAPES = [(1080, 1080)]
 S1_SHAPES = [(135, 135), (270, 270), (540, 540)]  # reference mode's coarse flows, upsampled x2
@@ -96,7 +109,8 @@ K3_SWEEP = [(2, 270, 270), (2, 134, 198), (52, 38)]
 K4_SWEEP = [(2, 61, 37), (1080, 1000)]
 K5_SWEEP = {"warp_lk_tile": (270, 270), "pyrup_warp_lk_tile": (268, 268)}  # odd / even tiles
 P1_ROUNDS = 5  # P1 and clone timed in turns, each round on use-once inputs
-ATOL_PYRDOWN = 2e-3  # vs 'poly' (tests/test_kernels.py:100-101)
+P1_SWEEP = (1, 3, 1024, 1027)  # lengths: float4 body, scalar tail (and offset 1)
+ATOL_PYRDOWN = 0.0  # K2 follows ops/pyramid.pyr_down_poly operation for operation
 SHIFT = (2.5, -1.5)  # (dx, dy) of the phase-5 pair, px
 RUNS = {"stream": "VideoPipeline.push (phase 4)",
         "controller": "coarse_to_fine level_iters=2 (phase 5)",
@@ -248,18 +262,28 @@ def phase_kernels(device, iters=20):
     and its ``clone``'s ("library_ms") are the medians of P1_ROUNDS rounds
     in turns, each round's reading kept ("device_ms_runs",
     "library_ms_runs"). K3-K5 also run the ragged and C sweep ("sweep"),
-    held to 0 like the main shapes."""
+    held to 0 like the main shapes, and K2 and P1 their ragged and tiny
+    cases. K2 is "pyramid" (the one call every path makes) and "pyrdown"
+    (its single levels, summed over the frame's three), which main folds
+    into one row. K2's and S1's "library_ms" time one cuDNN convolution that
+    computes the same function ("library_max_abs_diff": its distance from
+    the plain version); the port never calls it."""
     import torch
+    import torch.nn.functional as F
 
     from optical_flow_tpu_torch.kernels.lk_kernel import lucas_kanade_cuda, lucas_kanade_plain
-    from optical_flow_tpu_torch.kernels.pyrdown_kernel import pyr_down_cuda, pyr_down_plain
+    from optical_flow_tpu_torch.kernels.pyrdown_kernel import (
+        gaussian_pyramid_cuda, pyr_down_cuda, pyr_down_plain,
+    )
     from optical_flow_tpu_torch.kernels.warp_lk_kernel import (
         pyrup_warp_lk_cuda, pyrup_warp_lk_plain, warp_lk_cuda, warp_lk_plain,
     )
     from optical_flow_tpu_torch.kernels.pyrup_kernel import pyr_up_pair_cuda, pyr_up_pair_plain
     from optical_flow_tpu_torch.kernels.tile_copy_kernel import tile_copy_cuda, tile_copy_plain
     from optical_flow_tpu_torch.kernels.warp_lk_kernel import pyrup_coarse_halo
-    from optical_flow_tpu_torch.ops.pyramid import pyr_up_cols_first
+    from optical_flow_tpu_torch.ops.pyramid import (
+        _K5, _K5UP, _pad_pyrup, gaussian_pyramid, pyr_up_cols_first,
+    )
     from optical_flow_tpu_torch.ops.warp import symmetric_warp
     from optical_flow_tpu_torch.parallel.halo import exchange_halo, exchange_halo_pyrup
     from optical_flow_tpu_torch.parallel.mesh import split
@@ -292,7 +316,7 @@ def phase_kernels(device, iters=20):
     results = {}
 
     def record(name, shape, err, ms, plain_ms, tol, cost, full_err=None, library_ms=None,
-               device_ms=None, unmasked=None):
+               device_ms=None, unmasked=None, library_diff=None):
         if not err <= tol:
             raise AssertionError(f"{name} at {shape}: max|err| {err:.3g} > {tol:g}")
         if full_err is not None and not full_err == 0.0:
@@ -313,6 +337,8 @@ def phase_kernels(device, iters=20):
         r["by_shape"].append({"shape": list(shape), "max_abs_err": err, "ms": ms,
                               "plain_ms": plain_ms, "library_ms": library_ms,
                               "device_ms": device_ms, "bytes": cost.bytes, "ops": cost.ops})
+        if library_diff is not None:
+            r["by_shape"][-1]["library_max_abs_diff"] = library_diff
         if unmasked is not None:
             r["by_shape"][-1]["max_abs_err_unmasked"] = unmasked
             r["max_abs_err_unmasked"] = max(r.get("max_abs_err_unmasked", 0.0), unmasked)
@@ -414,6 +440,33 @@ def phase_kernels(device, iters=20):
         ms, pms = time_pair(lambda: lucas_kanade_plain(a, b), lambda: lucas_kanade_cuda(a, b), iters)
         record("lk", shape, err, ms, pms, ATOL_LK, kernel_cost("lk", [a, b], [u1, v1]),
                device_ms=use_once(lucas_kanade_cuda, (a, b)))
+    # the library calls: cuDNN convolutions with the same taps, TF32 off
+    # (main sets it); timed only, never called by the port
+    k5 = torch.tensor(_K5, device=device)
+    g5x5 = torch.outer(k5, k5)[None, None]
+    k5up = torch.tensor(_K5UP, device=device)
+    up5x5 = torch.outer(k5up, k5up)[None, None]
+
+    def pyr_down_conv(x):  # reflect-101 pad, 5x5 taps at stride 2
+        return F.conv2d(F.pad(x[None, None], (2, 2, 2, 2), mode="reflect"), g5x5, stride=2)[0, 0]
+
+    def pyramid_conv(x, levels):
+        out = [x]
+        for _ in range(levels - 1):
+            out.append(pyr_down_conv(out[-1]))
+        return out
+
+    def pyr_up_pair_conv(u, v):  # pyrUp's border pad, then a stride-2 transposed conv
+        y = F.conv_transpose2d(_pad_pyrup(torch.stack([u, v])[:, None]), up5x5, stride=2,
+                               padding=4, output_padding=1)
+        return y[0, 0], y[1, 0]
+
+    def levels_err(got, want):
+        if [tuple(g.shape) for g in got] != [tuple(w.shape) for w in want]:
+            raise AssertionError(f"pyramid shapes {[tuple(g.shape) for g in got]} != "
+                                 f"{[tuple(w.shape) for w in want]}")
+        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
     for shape in S1_SHAPES:
         # reference-mode flow is not a displacement: tens of px and more
         u, v = t(rng.randn(*shape) * 50.0), t(rng.randn(*shape) * 50.0)
@@ -422,17 +475,48 @@ def phase_kernels(device, iters=20):
         err = max(float((u1 - u0).abs().max()), float((v1 - v0).abs().max()))
         ms, pms = time_pair(lambda: pyr_up_pair_plain(u, v), lambda: pyr_up_pair_cuda(u, v), iters)
         record("pyrup", shape, err, ms, pms, 0.0, kernel_cost("pyrup", [u, v], [u1, v1]),
-               device_ms=use_once(pyr_up_pair_cuda, (u, v), [(-100.0, 100.0)] * 2))
+               device_ms=use_once(pyr_up_pair_cuda, (u, v), [(-100.0, 100.0)] * 2),
+               library_ms=use_once(pyr_up_pair_conv, (u, v), [(-100.0, 100.0)] * 2),
+               library_diff=levels_err(pyr_up_pair_conv(u, v), (u0, v0)))
     for shape in K2_SHAPES:
         x = t(rng.rand(*shape) * 255.0)
         y1, y0 = pyr_down_cuda(x), pyr_down_plain(x)
         torch.cuda.synchronize()
-        if y1.shape != y0.shape:
-            raise AssertionError(f"pyrdown shape {tuple(y1.shape)} != {tuple(y0.shape)}")
-        err = float((y1 - y0).abs().max())
+        err = levels_err([y1], [y0])
         ms, pms = time_pair(lambda: pyr_down_plain(x), lambda: pyr_down_cuda(x), iters)
         record("pyrdown", shape, err, ms, pms, ATOL_PYRDOWN, kernel_cost("pyrdown", [x], [y1]),
-               device_ms=use_once(pyr_down_cuda, (x,), [(0.0, 255.0)]))
+               device_ms=use_once(pyr_down_cuda, (x,), [(0.0, 255.0)]),
+               library_ms=use_once(pyr_down_conv, (x,), [(0.0, 255.0)]),
+               library_diff=levels_err([pyr_down_conv(x)], [y0]))
+    (shape, levels) = PYRAMID
+    x = t(rng.rand(*shape) * 255.0)
+    got, want = gaussian_pyramid_cuda(x, levels), gaussian_pyramid(x, levels, impl="poly")
+    torch.cuda.synchronize()
+    ms, pms = time_pair(lambda: gaussian_pyramid(x, levels, impl="poly"),
+                        lambda: gaussian_pyramid_cuda(x, levels), iters)
+    record("pyramid", shape, levels_err(got, want), ms, pms, ATOL_PYRDOWN,
+           kernel_cost("pyramid", [x], got[1:], outputs_counted=sum(g.numel() for g in got[1:])),
+           device_ms=use_once(gaussian_pyramid_cuda, (x,), [(0.0, 255.0)], levels=levels),
+           library_ms=use_once(pyramid_conv, (x,), [(0.0, 255.0)], levels=levels),
+           library_diff=levels_err(pyramid_conv(x, levels), want))
+    results["pyramid"]["by_shape"][-1].update(entry="oft_pyramid", levels=levels)
+    # K2's ragged and tiny cases (not timed), bit for bit
+    for shape, levels in K2_SWEEP_PYRAMIDS:
+        x = t(rng.rand(*shape) * 255.0)
+        err = levels_err(gaussian_pyramid_cuda(x, levels), gaussian_pyramid(x, levels, impl="poly"))
+        results["pyramid"].setdefault("sweep", []).append(
+            {"shape": list(shape), "entry": "oft_pyramid", "levels": levels, "max_abs_err": err})
+        log(f"  pyramid sweep {'x'.join(map(str, shape))}, {levels} levels: max|err| {err:.3g}")
+    for shape in K2_SWEEP_LEVELS:
+        x = t(rng.rand(*shape) * 255.0)
+        err = levels_err([pyr_down_cuda(x)], [pyr_down_plain(x)])
+        results["pyrdown"].setdefault("sweep", []).append(
+            {"shape": list(shape), "max_abs_err": err})
+        log(f"  pyrdown sweep {'x'.join(map(str, shape))}: max|err| {err:.3g}")
+    for name in ("pyrdown", "pyramid"):
+        bad = [c for c in results[name]["sweep"] if not c["max_abs_err"] <= ATOL_PYRDOWN]
+        if bad:
+            raise AssertionError(f"{name} sweep differs from the plain version: {bad}")
     kw3 = dict(max_disp=C, clamp=CLAMP)
     for shape in K3_SHAPES:
         H, W = shape
@@ -529,6 +613,14 @@ def phase_kernels(device, iters=20):
            kernel_cost("copy", [x], [y1]), library_ms=float(np.median(runs["clone"])),
            device_ms=float(np.median(runs["p1"])))
     results["tile_copy"].update(device_ms_runs=runs["p1"], library_ms_runs=runs["clone"])
+    # ragged lengths (float4 body and scalar tail) and an unaligned start
+    cases = [(n, t(rng.rand(n))) for n in P1_SWEEP] + [("offset 1", t(rng.rand(1028))[1:])]
+    for n, x in cases:
+        err = float((tile_copy_cuda(x) - tile_copy_plain(x)).abs().max())
+        results["tile_copy"].setdefault("sweep", []).append({"n": n, "max_abs_err": err})
+        if err != 0.0:
+            raise AssertionError(f"tile_copy at n={n}: max|err| {err:.3g}, want 0")
+    log(f"  tile_copy sweep {[n for n, _ in cases]}: max|err| 0")
     log(f"  tile_copy rounds: P1 {[round(v * 1e3, 2) for v in runs['p1']]} us, "
         f"clone {[round(v * 1e3, 2) for v in runs['clone']]} us")
     torch.cuda.synchronize()
@@ -575,7 +667,7 @@ def phase_slice(device, frames, size):
 
     F = len(frames)
     check_counts("slice", counts,
-                 {"oft_pyrdown": 3 * (F - 1), "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2)})
+                 {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2)})
     if len(res_k) != F - 2 or len(res_p) != F - 2:
         raise AssertionError(f"expected {F - 2} results, got {len(res_k)} and {len(res_p)}")
     d, votes = [], []
@@ -645,13 +737,13 @@ def phase_controller(device, size):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     check_counts("controller", counts,
-                 {"oft_pyrdown": 6, "oft_lk": 1, "oft_pyrup_warp_lk": 3, "oft_warp_lk": 4})
+                 {"oft_pyramid": 2, "oft_lk": 1, "oft_pyrup_warp_lk": 3, "oft_warp_lk": 4})
     return {"launches": counts, "median_epe_px": median_epe("controller", u, v)}
 
 
 def phase_mesh_slice(device, frames, size, stream_results):
     """Phase 4's frames through VideoPipeline(fast, mesh=2x2 tiles on the
-    card). Per frame pair: K2 three times (the new diff's pyramid), K1 once
+    card). Per frame pair: K2 once (the new diff's pyramid), K1 once
     (135^2, untileable), K3 full frame once (270^2: its 135^2 tiles are
     odd), K3 tiled at 540^2 and 1080^2 (one launch per tile); P1 once per
     tile at the mesh's first sharded call."""
@@ -667,7 +759,7 @@ def phase_mesh_slice(device, frames, size, stream_results):
     counts = kernels.launch_counts()
     F = len(frames)
     check_counts("mesh slice", counts,
-                 {"oft_pyrdown": 3 * (F - 1), "oft_lk": F - 2, "oft_pyrup_warp_lk": F - 2,
+                 {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": F - 2,
                   "oft_pyrup_warp_lk_tile": 2 * tiles * (F - 2), "oft_tile_copy": tiles})
     if len(res) != len(stream_results):
         raise AssertionError(f"mesh slice gave {len(res)} results, phase 4 {len(stream_results)}")
@@ -703,7 +795,7 @@ def phase_mesh_controller(device, size):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     check_counts("mesh controller", counts,
-                 {"oft_pyrdown": 4, "oft_lk": tiles, "oft_pyrup_warp_lk_tile": 2 * tiles,
+                 {"oft_pyramid": 2, "oft_lk": tiles, "oft_pyrup_warp_lk_tile": 2 * tiles,
                   "oft_warp_lk_tile": 3 * tiles, "oft_tile_copy": tiles})
     if not (torch.equal(u, u0) and torch.equal(v, v0)):
         raise AssertionError("the mesh controller differs from the unsharded controller")
@@ -984,6 +1076,37 @@ def phase_profile(device, config, name, warmup=PROFILE_WARMUP, n=PROFILE_FRAMES)
     return summary
 
 
+def pyramid_graph_capture(device):
+    """Whether the pyramid's grids (programmatic dependent launch between its
+    levels) can be captured into a CUDA graph and replayed on new input
+    (compared with the plain pyramid). Reported only: no path of the port
+    relies on it."""
+    import torch
+
+    from optical_flow_tpu_torch.kernels.pyrdown_kernel import gaussian_pyramid_cuda
+    from optical_flow_tpu_torch.ops.pyramid import gaussian_pyramid
+
+    shape, levels = PYRAMID
+    x = torch.rand(*shape, device=device) * 255.0
+    try:
+        side = torch.cuda.Stream(device)  # warm up off the capturing stream
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            gaussian_pyramid_cuda(x, levels)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = gaussian_pyramid_cuda(x, levels)
+        x.copy_(torch.rand(*shape, device=device) * 255.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = gaussian_pyramid(x, levels, impl="poly")
+        return {"captured": True,
+                "replay_max_abs_err": max(float((a - b).abs().max()) for a, b in zip(out, want))}
+    except Exception as e:  # a refusal is the answer, not a failure of the run
+        return {"captured": False, "error": f"{type(e).__name__}: {e}"[:300]}
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1016,6 +1139,9 @@ def main() -> int:
         m = re.search(r"warp_lk_kernelILb(\d)ELb(\d)ELi(\d+)E", line)
         log(f"  ptxas warp_lk_kernel<pyrup={m[1]}, tile={m[2]}, rows={m[3]}>: {line.split(': ', 1)[1]}"
             if m else f"  ptxas {line}")
+    for kernel in ("pyrdown_kernel", "tile_copy"):
+        for line in _lib.ptxas_info(kernel):
+            log(f"  ptxas {line}")
 
     per_kernel = phase_kernels(device)
     log("[3 kernels] all kernels agree with their plain versions")
@@ -1042,6 +1168,8 @@ def main() -> int:
     log(f"[9 reference profile] {json.dumps(ref_prof)}")
     prb = phase_probes(device)
     log(f"[10 probes] {json.dumps(prb)}")
+    per_kernel["pyramid"]["graph_capture"] = pyramid_graph_capture(device)
+    log(f"  pyramid graph capture: {json.dumps(per_kernel['pyramid']['graph_capture'])}")
 
     # Each count comes from one run, its counters reset just before it: the
     # streaming VideoPipeline.push run (phase 4) drives K2-K3, K4 runs on the
@@ -1053,7 +1181,8 @@ def main() -> int:
     meta = {
         "lk": (("oft_lk",), "reference", "optical_flow_tpu_torch/kernels/csrc/lk.cu",
                "optical_flow_tpu/kernels/lk_kernel.py:173"),
-        "pyrdown": (("oft_pyrdown",), "stream", "optical_flow_tpu_torch/kernels/csrc/pyrdown.cu",
+        # K2: every path calls it as oft_pyramid, one count a pyramid
+        "pyramid": (("oft_pyramid",), "stream", "optical_flow_tpu_torch/kernels/csrc/pyrdown.cu",
                     "optical_flow_tpu/kernels/pyrdown_kernel.py:146"),
         "pyrup_warp_lk": (("oft_pyrup_warp_lk",), "stream",
                           "optical_flow_tpu_torch/kernels/csrc/warp_lk.cu",
@@ -1099,6 +1228,16 @@ def main() -> int:
             "device_ms": prb["ms"][name][v0],
             "bytes": prb["cost"][name]["bytes"], "ops": prb["cost"][name]["ops"],
             "variants": prb["ms"][name]}
+    # K2 has one row, the pyramid call of the paths (one count a call, one
+    # grid a level below the input). Phase 3's single levels (oft_pyrdown,
+    # the same kernel as one grid, called by no path) stand in its by_shape
+    # and sweep, marked by their entry; its totals are the pyramid call's.
+    single = per_kernel.pop("pyrdown")
+    k2 = per_kernel["pyramid"]
+    k2["max_abs_err"] = max(k2["max_abs_err"], single["max_abs_err"])
+    k2["by_shape"] += [dict(b, entry="oft_pyrdown", levels=2) for b in single["by_shape"]]
+    k2["sweep"] += [dict(c, entry="oft_pyrdown", levels=2) for c in single["sweep"]]
+    k2["grids_per_call"] = PYRAMID[1] - 1
     sustained = {"bytes_per_s": prb["sustained"]["copy_bytes_per_s"],
                  "ops_per_s": {torch.float32: prb["sustained"]["f32_ops_per_s"]}}
     rows = []
@@ -1115,7 +1254,8 @@ def main() -> int:
                "share_of_bound": roof.get("share_of_bound"),
                "sustained_ms": roof["sustained_ms"], "sustained_by": roof["sustained_by"],
                "share_of_sustained": roof.get("share_of_sustained")}
-        for key in ("max_abs_err_unmasked", "device_ms_runs", "library_ms_runs", "sweep"):
+        for key in ("max_abs_err_unmasked", "device_ms_runs", "library_ms_runs", "sweep",
+                    "graph_capture", "grids_per_call"):
             if key in r:
                 row[key] = r[key]
         if len(entries) > 1:

@@ -2,7 +2,9 @@
 the repository, each with its plain PyTorch version:
 
   K1  lk_kernel.lucas_kanade_cuda         csrc/lk.cu
-  K2  pyrdown_kernel.pyr_down_cuda        csrc/pyrdown.cu
+  K2  pyrdown_kernel.pyr_down_cuda        csrc/pyrdown.cu (one level), and
+      pyrdown_kernel.gaussian_pyramid_cuda (every level below the input,
+      one call of the same kernel)
   K3  warp_lk_kernel.pyrup_warp_lk_cuda   csrc/warp_lk.cu
   K4  warp_lk_kernel.warp_lk_cuda         csrc/warp_lk.cu
   K5  the tile mode of K3/K4 (halo=, origin=, global_hw=; entry points
@@ -22,7 +24,7 @@ from typing import Dict
 
 from optical_flow_tpu_torch.kernels import _lib
 from optical_flow_tpu_torch.kernels.lk_kernel import lucas_kanade_cuda
-from optical_flow_tpu_torch.kernels.pyrdown_kernel import pyr_down_cuda
+from optical_flow_tpu_torch.kernels.pyrdown_kernel import gaussian_pyramid_cuda, pyr_down_cuda
 from optical_flow_tpu_torch.kernels.pyrup_kernel import pyr_up_pair_cuda
 from optical_flow_tpu_torch.kernels.tile_copy_kernel import tile_copy_cuda
 from optical_flow_tpu_torch.kernels.warp_lk_kernel import pyrup_warp_lk_cuda, warp_lk_cuda
@@ -38,6 +40,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "gaussian_pyramid_cuda",
     "launch_counts",
     "lucas_kanade_cuda",
     "pyr_down_cuda",

@@ -41,10 +41,12 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)  # a host array, e.g. (ctypes.c_longlong * n)(...)
 # Every entry point ends with the stream (a cudaStream_t passed as a pointer).
 _ARGTYPES = {
     "oft_lk": [_P, _P, _P, _P, _I, _I, _I, _P],
     "oft_pyrdown": [_P, _P, _I, _I, _I, _P],
+    "oft_pyramid": [_P, _P, _LP, _I, _I, _I, _I, _P],  # x, out, level offsets, B, H, W, levels
     "oft_warp_lk": [_P] * 6 + [_I, _I, _I, _I, _F, _F, _P],
     "oft_pyrup_warp_lk": [_P] * 6 + [_I, _I, _I, _I, _F, _P],
     # K5: ... halo, row0, col0, Hg, Wg (K3 also the coarse row halo after halo)

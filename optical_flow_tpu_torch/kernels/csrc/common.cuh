@@ -1,12 +1,12 @@
 // Device code shared by the port's kernels (lk.cu, pyrdown.cu, warp_lk.cu).
 //
-// Every kernel works on (B, H, W) float32 planes. K1 and K2 take one thread
-// per output pixel over a TH x TW tile, with the tile and its halo staged in
-// shared memory (warp_lk.cu has its own tile shape). The arithmetic follows
-// the plain PyTorch versions operation for operation (same operands, same
-// order), and the library is built with -fmad=false and without
-// --use_fast_math, so each product and sum rounds as it does in eager
-// PyTorch and '/' is the IEEE division.
+// Every kernel works on (B, H, W) float32 planes. K1 takes one thread per
+// output pixel over a TH x TW tile, with the tile and its halo staged in
+// shared memory (pyrdown.cu and warp_lk.cu have their own tile shapes).
+// The arithmetic follows the plain PyTorch versions operation for operation
+// (same operands, same order), and the library is built with -fmad=false
+// and without --use_fast_math, so each product and sum rounds as it does in
+// eager PyTorch and '/' is the IEEE division.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,6 +34,24 @@ __device__ __forceinline__ int reflect101(int i, int n) {
   i %= p;
   if (i < 0) i += p;
   return i < n ? i : p - i;
+}
+
+// Asynchronous copies from device memory into shared memory (cp.async): 4
+// bytes through the L1, or 16 bytes (both addresses 16-byte aligned) past it.
+// A thread's copies are complete after cp_async_wait_all; other threads see
+// them after the barrier that follows.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // jnp.clip / torch.clamp: NaN propagates (fminf/fmaxf would drop it).

@@ -154,11 +154,6 @@ __device__ __forceinline__ float shift_win(const float* row, float q, int sgn) {
   return (1.0f - f) * row[sgn * k] + f * row[sgn * (k + 1)];
 }
 
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
 // Coordinates below are the output's own (pixel (0, 0) = the tile's first
 // pixel); G* are global ones. TILE (K3 only): the coarse flow carries its
 // halo.

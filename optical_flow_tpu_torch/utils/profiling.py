@@ -40,6 +40,11 @@ OPS_PER_OUTPUT = {
     # vertical 5-tap at the kept rows (two input columns per output) 18,
     # horizontal 5-tap 9
     "pyrdown": 27,
+    # the same per output of every level below the input: cost a pyramid as
+    # kernel_cost("pyramid", [input], levels, outputs_counted=<their sum>),
+    # the input read once and each level written once (what the function
+    # needs, whether or not a kernel reads a level back)
+    "pyramid": 27,
     # per output value of one plane: the row pass (8 per coarse pixel and
     # column) and the column pass (16), over 4 outputs per coarse pixel
     "pyrup": 6,
@@ -69,7 +74,8 @@ def kernel_cost(kind: str, inputs: Sequence[torch.Tensor], outputs: Sequence[tor
                 outputs_counted: Optional[int] = None) -> Cost:
     """Bytes and operations of one call of kernel ``kind``. The operations
     are ``OPS_PER_OUTPUT[kind]`` per element of the first output, or per
-    ``outputs_counted`` positions where fewer carry work (S3's window)."""
+    ``outputs_counted`` positions where that differs (S3's window, every
+    level of a pyramid)."""
     n = outputs[0].numel() if outputs_counted is None else outputs_counted
     return Cost(float(io_bytes(list(inputs) + list(outputs))), float(OPS_PER_OUTPUT[kind]) * n)
 

@@ -11,7 +11,7 @@ the JAX jnp composition, at the JAX suite's own tolerances:
                     (tests/test_warp_lk_kernel.py:61-106)
 
 The tests marked ``cuda`` hold each kernel against its plain version on a
-card; they skip where there is none (run them with
+card (K2 and P1 bit for bit); they skip where there is none (run them with
 ``python -m pytest -m cuda tests/test_torch_*.py`` on a GPU host).
 """
 
@@ -28,7 +28,12 @@ from optical_flow_tpu.ops.pyramid import pyr_up_cols_first as j_pyr_up_cf
 from optical_flow_tpu.ops.warp import symmetric_warp as j_symmetric_warp
 from optical_flow_tpu_torch.kernels import launch_counts
 from optical_flow_tpu_torch.kernels.lk_kernel import lucas_kanade_cuda, lucas_kanade_plain
-from optical_flow_tpu_torch.kernels.pyrdown_kernel import pyr_down_cuda, pyr_down_plain
+from optical_flow_tpu_torch.kernels.pyrdown_kernel import (
+    gaussian_pyramid_cuda,
+    pyr_down_cuda,
+    pyr_down_plain,
+)
+from optical_flow_tpu_torch.kernels.tile_copy_kernel import tile_copy_cuda, tile_copy_plain
 from optical_flow_tpu_torch.kernels.warp_lk_kernel import (
     pyrup_warp_lk_cuda,
     pyrup_warp_lk_plain,
@@ -269,6 +274,8 @@ def test_cpu_wrappers_launch_nothing():
     x = torch.rand(16, 16)
     lucas_kanade_cuda(x, x)
     pyr_down_cuda(x)
+    gaussian_pyramid_cuda(x, 3)
+    tile_copy_cuda(x)
     warp_lk_cuda(x, x, x, x, max_disp=2, clamp=4.0)
     pyrup_warp_lk_cuda(x, x, x[:8, :8].contiguous(), x[:8, :8].contiguous(), max_disp=2, clamp=4.0)
     assert launch_counts() == before
@@ -329,7 +336,22 @@ def test_pyrdown_kernel_on_card(cuda_device):
     for shape in [(2, 1080, 1080), (135, 271), (3, 7)]:
         x = _on(cuda_device, rng, *shape, scale=255.0)
         got = _counted("oft_pyrdown", lambda: pyr_down_cuda(x))
-        torch.testing.assert_close(got, pyr_down_plain(x), atol=2e-3, rtol=0)
+        torch.testing.assert_close(got, pyr_down_plain(x), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_tile_copy_kernel_on_card(cuda_device):
+    """P1 equals ``clone`` bit for bit: float4 body and scalar tail, and a
+    storage offset of 1 (not 16-byte aligned: the 64-bit grid-stride loop)."""
+    rng = np.random.RandomState(5)
+    for n in (1, 3, 1024, 1027):
+        x = _on(cuda_device, rng, n)
+        torch.testing.assert_close(_counted("oft_tile_copy", lambda: tile_copy_cuda(x)),
+                                   tile_copy_plain(x), atol=0, rtol=0)
+    x = _on(cuda_device, rng, 1028)[1:]
+    assert x.is_contiguous() and x.storage_offset() == 1
+    torch.testing.assert_close(_counted("oft_tile_copy", lambda: tile_copy_cuda(x)),
+                               tile_copy_plain(x), atol=0, rtol=0)
 
 
 # the ragged and C sweep on the card: (shape, C), clamp 2C, flows that reach C
