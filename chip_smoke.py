@@ -8,15 +8,18 @@ configuration) once on an NVIDIA GPU, and run the probes S2-S4.
 Phases, each printing one line (any failure raises and exits non-zero):
   1. device: the card's name and its nvidia-smi name/power-limit line;
   2. build: compile the CUDA kernels from optical_flow_tpu_torch/kernels/csrc,
-     and print what the compiler allotted K3-K5 (registers, spills);
+     and print what the compiler allotted K1-K5, S1 and P1 (registers,
+     spills);
   3. each kernel against its plain PyTorch version at the shapes of the main
      path, float32, with its tolerance, timed with CUDA events in turns
      (plain, kernel, kernel, plain) after warm-up, and by its device time
      on use-once inputs; K5 (the tile mode of K3 and K4) on the 2x2 tile
      grid of the mesh path, also against the full-frame kernel's region
-     (max |err| must be 0), timed as one frame's four tiles; K3-K5 held to
-     max |err| 0 (the unmasked max |err| printed beside it), also over a
-     ragged and C sweep (shapes that leave partial blocks, C = 1, 4, 8);
+     (max |err| must be 0), timed as one frame's four tiles; K1 and K3-K5
+     held to max |err| 0 (the unmasked max |err| printed beside it), K3-K5
+     also over a ragged and C sweep (shapes that leave partial blocks, C =
+     1, 4, 8), K1 over a ragged sweep on both sides of its launcher's
+     strip rule;
      K2 per level and as the one-call pyramid of a 1080^2 frame (4
      levels), bit for bit, also over ragged and tiny planes and a pyramid to
      1x1; and P1 (the mesh probe's copy kernel) on the probe's tiles, in
@@ -46,23 +49,24 @@ Phases, each printing one line (any failure raises and exits non-zero):
  10. the probes S2-S4 on use-once inputs, device time of back-to-back
      launches (utils/profiling.time_use_once), each against its plain
      version bit for bit, with the copy and elementwise rates they measure
-     at their own shapes; then the copy rate (S2) and float32 elementwise
+     at their own shapes, and the plain version and library call of each
+     variant where they differ (S2's rows, S4 in bfloat16); then the copy rate (S2) and float32 elementwise
      rate (S4) that the card sustains at sizes that fill it many times over.
-Phase 3 also holds S1 at the three upsamples of a 1080^2 frame and K1 at
-every level of the reference path, and times the one PyTorch call that
-computes K2's and S1's function (cuDNN convolutions, TF32 off; the
-pyramid's: one a level). At the end, whether the pyramid's grids (one a
-level, programmatic dependent launch) can be captured into a CUDA graph
-(reported, not required). Launch counters are reset just before the runs
-of phases 4, 5, 7, 8, 9 and 10 and read just after each. Then one
+Phase 3 also holds S1 at the three upsamples of a 1080^2 frame, and over
+a ragged sweep at odd and even coarse widths on both sides of its
+launcher's strip rule, bit for bit, and K1 at every level of the reference path, and times the one
+PyTorch call that computes K2's and S1's function (cuDNN convolutions,
+TF32 off; the pyramid's: one a level). At the end, whether the pyramid's
+grids (one a level, programmatic dependent launch) can be captured into a
+CUDA graph (reported, not required). Launch counters are reset just before
+the runs of phases 4, 5, 7, 8, 9 and 10 and read just after each. Then one
 JSON line with the kernels (each with its least time on the card, from
 utils/profiling's byte and operation model against the published H100
 peaks, its time at the rates phase 10 sustained, its device time on
 use-once inputs where measured, and, where one PyTorch call computes the
 same function, that call's time; K2 in one row, its pyramid call, with the
-single levels in its by_shape), and as the
-last line {"ok": true, "device": {...}}. It needs one CUDA device and no
-network.
+single levels in its by_shape), and as the last line {"ok": true,
+"device": {...}}. It needs one CUDA device and no network.
 """
 
 from __future__ import annotations
@@ -97,7 +101,23 @@ K5_WARP_SHAPES = [(1080, 1080)]
 K5_PYRUP_SHAPES = [(540, 540), (1080, 1080)]
 P1_TILE = (8, 128)  # the mesh probe's tile (parallel/vma_compat.py)
 CLAMP, C = 8.0, 4  # VideoConfig.fast(): warp_clamp=8 -> shift_sep max_disp 4
-ATOL_LK = 2e-5  # well-conditioned pixels (tests/test_warp_lk_kernel.py:61-106)
+# K1 follows its plain version operation for operation: held to 0 on the
+# well-conditioned pixels (tests/test_warp_lk_kernel.py:61-81), the unmasked
+# max |err| printed beside it
+ATOL_LK = 0.0
+# K1's ragged sweep: shapes that leave partial warps and strips on both sides
+# of the launcher's rule: 2-row strips of 29 columns a warp for small grids,
+# 4-row strips of 60 columns (8-byte accesses at even widths) from a grid of
+# 1080^2 or a batch that large (the last six); 4 strips a block
+K1_SWEEP = [(2, 135, 271), (3, 3), (3, 7), (2, 7, 57), (9, 60), (15, 31), (17, 87), (28, 29),
+            (31, 59), (33, 30), (63, 88), (65, 86), (127, 30), (129, 28),
+            (1, 1080, 1000), (1, 1081, 1001), (1, 1089, 1021), (1, 1087, 1022), (32, 127, 119),
+            (32, 129, 120)]
+# S1's ragged sweep at odd and even coarse widths (8-byte and 16-byte stores),
+# on both sides of the launcher's rule: 1 coarse row a thread, and 2 from the
+# grid of a 540^2 coarse flow or a batch that large (the last four)
+S1_SWEEP = [(2, 135, 135), (270, 271), (1, 1), (1, 9), (9, 1), (2, 7, 5), (33, 64), (31, 130),
+            (2, 17, 66), (540, 541), (537, 530), (543, 511), (8, 135, 136)]
 # K3-K5 follow their plain versions operation for operation: held to 0 on the
 # well-conditioned pixels (the unmasked max |err| is printed beside it)
 ATOL_WARP_LK = 0.0
@@ -433,13 +453,23 @@ def phase_kernels(device, iters=20):
 
     for shape in K1_SHAPES:
         a, b = t(rng.rand(*shape)), t(rng.rand(*shape))
-        (u1, v1), (u0, v0) = lucas_kanade_cuda(a, b), lucas_kanade_plain(a, b)
+        out, ref = lucas_kanade_cuda(a, b), lucas_kanade_plain(a, b)
         torch.cuda.synchronize()
-        m = well_conditioned(a, b)
-        err = max(masked_err(u1, u0, m), masked_err(v1, v0, m))
+        err, unmasked = pair_errors(out, ref, well_conditioned(a, b))
         ms, pms = time_pair(lambda: lucas_kanade_plain(a, b), lambda: lucas_kanade_cuda(a, b), iters)
-        record("lk", shape, err, ms, pms, ATOL_LK, kernel_cost("lk", [a, b], [u1, v1]),
-               device_ms=use_once(lucas_kanade_cuda, (a, b)))
+        record("lk", shape, err, ms, pms, ATOL_LK, kernel_cost("lk", [a, b], list(out)),
+               device_ms=use_once(lucas_kanade_cuda, (a, b)), unmasked=unmasked)
+    # K1's ragged sweep (not timed), held to 0 on the mask
+    for shape in K1_SWEEP:
+        a, b = t(rng.rand(*shape)), t(rng.rand(*shape))
+        err, unmasked = pair_errors(lucas_kanade_cuda(a, b), lucas_kanade_plain(a, b),
+                                    well_conditioned(a, b))
+        results["lk"].setdefault("sweep", []).append(
+            {"shape": list(shape), "max_abs_err": err, "max_abs_err_unmasked": unmasked})
+        results["lk"]["max_abs_err_unmasked"] = max(results["lk"]["max_abs_err_unmasked"], unmasked)
+        log(f"  lk sweep {'x'.join(map(str, shape))}: max|err| {err:.3g}, unmasked {unmasked:.3g}")
+        if not err <= ATOL_LK:
+            raise AssertionError(f"lk sweep at {shape}: max|err| {err:.3g} on the mask, want 0")
     # the library calls: cuDNN convolutions with the same taps, TF32 off
     # (main sets it); timed only, never called by the port
     k5 = torch.tensor(_K5, device=device)
@@ -478,6 +508,14 @@ def phase_kernels(device, iters=20):
                device_ms=use_once(pyr_up_pair_cuda, (u, v), [(-100.0, 100.0)] * 2),
                library_ms=use_once(pyr_up_pair_conv, (u, v), [(-100.0, 100.0)] * 2),
                library_diff=levels_err(pyr_up_pair_conv(u, v), (u0, v0)))
+    # S1's ragged sweep (not timed) at odd and even coarse widths, bit for bit
+    for shape in S1_SWEEP:
+        u, v = t(rng.randn(*shape) * 50.0), t(rng.randn(*shape) * 50.0)
+        err = levels_err(pyr_up_pair_cuda(u, v), pyr_up_pair_plain(u, v))
+        results["pyrup"].setdefault("sweep", []).append({"shape": list(shape), "max_abs_err": err})
+        log(f"  pyrup sweep {'x'.join(map(str, shape))}: max|err| {err:.3g}")
+        if err != 0.0:
+            raise AssertionError(f"pyrup sweep at {shape}: max|err| {err:.3g}, want 0")
     for shape in K2_SHAPES:
         x = t(rng.rand(*shape) * 255.0)
         y1, y0 = pyr_down_cuda(x), pyr_down_plain(x)
@@ -932,6 +970,18 @@ def phase_probes(device, n=100):
         "colsum": time_use_once(conv, s3, device),
         "mul_add_chain": None,
     }
+    # the other variants' plain versions and library calls, where they
+    # differ from the first variant's (S2's rows: stack + reshape along rows,
+    # which is also its plain version; S4 in bfloat16)
+    plain_ms_by_variant = {
+        "interleave": {"rows": time_use_once(P.interleave_rows_plain, s2, device)},
+        "mul_add_chain": {"bf16": time_use_once(P.mul_add_chain_plain, s4[torch.bfloat16][:6],
+                                                device)},
+    }
+    library_ms_by_variant = {
+        "interleave": {"rows": time_use_once(
+            lambda a, b: torch.stack([a, b], dim=-2).reshape(2 * h, w), s2, device)},
+    }
 
     errs = {}
     a, b = s2[0]
@@ -998,6 +1048,8 @@ def phase_probes(device, n=100):
                  "chain": [n_s, steps_s], "chain_ms": chain_ms,
                  "f32_ops_per_s": 2 * steps_s * n_s / (chain_ms * 1e-3)}
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "launches": counts,
+            "plain_ms_by_variant": plain_ms_by_variant,
+            "library_ms_by_variant": library_ms_by_variant,
             "max_abs_err": {f"{k}/{v}": e for (k, v), e in errs.items()},
             "conv1d_max_abs_diff": conv_err, "rates_at_probe_shapes": rates, "sustained": sustained,
             "cost": {k: {"bytes": c.bytes, "ops": c.ops} for k, c in cost.items()},
@@ -1139,6 +1191,14 @@ def main() -> int:
         m = re.search(r"warp_lk_kernelILb(\d)ELb(\d)ELi(\d+)E", line)
         log(f"  ptxas warp_lk_kernel<pyrup={m[1]}, tile={m[2]}, rows={m[3]}>: {line.split(': ', 1)[1]}"
             if m else f"  ptxas {line}")
+    for line in _lib.ptxas_info("lk_strip_kernel"):
+        m = re.search(r"lk_strip_kernelILi(\d+)ELi(\d+)ELb(\d)E", line)
+        log(f"  ptxas lk_strip_kernel<rows={m[1]}, cols={m[2]}, vec={m[3]}>: "
+            f"{line.split(': ', 1)[1]}" if m else f"  ptxas {line}")
+    for line in _lib.ptxas_info("pyrup_strip_kernel"):
+        m = re.search(r"pyrup_strip_kernelILi(\d+)ELb(\d)E", line)
+        log(f"  ptxas pyrup_strip_kernel<rows={m[1]}, quad={m[2]}>: {line.split(': ', 1)[1]}"
+            if m else f"  ptxas {line}")
     for kernel in ("pyrdown_kernel", "tile_copy"):
         for line in _lib.ptxas_info(kernel):
             log(f"  ptxas {line}")
@@ -1228,6 +1288,9 @@ def main() -> int:
             "device_ms": prb["ms"][name][v0],
             "bytes": prb["cost"][name]["bytes"], "ops": prb["cost"][name]["ops"],
             "variants": prb["ms"][name]}
+        for key in ("plain_ms_by_variant", "library_ms_by_variant"):
+            if name in prb[key]:
+                per_kernel[name][key] = prb[key][name]
     # K2 has one row, the pyramid call of the paths (one count a call, one
     # grid a level below the input). Phase 3's single levels (oft_pyrdown,
     # the same kernel as one grid, called by no path) stand in its by_shape
@@ -1255,7 +1318,8 @@ def main() -> int:
                "sustained_ms": roof["sustained_ms"], "sustained_by": roof["sustained_by"],
                "share_of_sustained": roof.get("share_of_sustained")}
         for key in ("max_abs_err_unmasked", "device_ms_runs", "library_ms_runs", "sweep",
-                    "graph_capture", "grids_per_call"):
+                    "graph_capture", "grids_per_call", "plain_ms_by_variant",
+                    "library_ms_by_variant"):
             if key in r:
                 row[key] = r[key]
         if len(entries) > 1:

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for the H100 (sm_90a), one per TPU kernel of
 the repository, each with its plain PyTorch version:
 
-  K1  lk_kernel.lucas_kanade_cuda         csrc/lk.cu
+  K1  lk_kernel.lucas_kanade_cuda         csrc/lk.cu (a warp a strip of rows, the
+      whole LK tail in registers; strip shape by the grid)
   K2  pyrdown_kernel.pyr_down_cuda        csrc/pyrdown.cu (one level), and
       pyrdown_kernel.gaussian_pyramid_cuda (every level below the input,
       one call of the same kernel)
@@ -10,7 +11,8 @@ the repository, each with its plain PyTorch version:
   K5  the tile mode of K3/K4 (halo=, origin=, global_hw=; entry points
       oft_pyrup_warp_lk_tile, oft_warp_lk_tile), csrc/warp_lk.cu
   P1  tile_copy_kernel.tile_copy_cuda     csrc/tile_copy.cu (the mesh probe)
-  S1  pyrup_kernel.pyr_up_pair_cuda       csrc/pyrup.cu (reference mode's upsample)
+  S1  pyrup_kernel.pyr_up_pair_cuda       csrc/pyrup.cu (reference mode's upsample:
+      a thread two coarse columns down a strip, 16-byte stores at even widths)
   S2  probes.interleave_{rows,cols}_cuda  csrc/probes.cu (probes: no flow path
   S3  probes.colsum_cuda                  csrc/probes.cu  calls them)
   S4  probes.mul_add_chain_cuda           csrc/probes.cu

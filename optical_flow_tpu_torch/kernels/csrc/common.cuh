@@ -1,8 +1,7 @@
-// Device code shared by the port's kernels (lk.cu, pyrdown.cu, warp_lk.cu).
+// Device code shared by the port's kernels (lk.cu, pyrdown.cu, warp_lk.cu):
+// the REFLECT_101 index, cp.async copies, the flow quantization and the LK
+// tail's gradient products and Cramer solve.
 //
-// Every kernel works on (B, H, W) float32 planes. K1 takes one thread per
-// output pixel over a TH x TW tile, with the tile and its halo staged in
-// shared memory (pyrdown.cu and warp_lk.cu have their own tile shapes).
 // The arithmetic follows the plain PyTorch versions operation for operation
 // (same operands, same order), and the library is built with -fmad=false
 // and without --use_fast_math, so each product and sum rounds as it does in
@@ -12,19 +11,6 @@
 #include <cuda_runtime.h>
 
 namespace oft {
-
-constexpr int TW = 32;  // output tile width: one warp per tile row
-constexpr int TH = 8;   // output tile height
-constexpr int NT = TW * TH;
-
-// Staged image/warped planes cover rows [y0-2, y0+TH+1) and columns
-// [x0-2, x0+TW+1): the 2x2 gradient stencil (anchor (1,1)) plus the 3x3
-// window reach 2 up/left and 1 down/right of an output pixel.
-constexpr int SH = TH + 3;
-constexpr int SW = TW + 3;
-// Gradient products cover rows [y0-1, y0+TH+1) and columns [x0-1, x0+TW+1).
-constexpr int PH = TH + 2;
-constexpr int PW = TW + 2;
 
 // BORDER_REFLECT_101 source index (numpy 'reflect', repeated for reaches
 // wider than the axis).
@@ -82,51 +68,24 @@ __device__ __forceinline__ void lk_grad_products(float a1, float b1, float c1, f
   p[4] = fy * ft;
 }
 
-// 2x2 gradients of both staged planes -> the five products at every
-// gradient position of the tile.
-// s1/s2: SH x SW planes; prod: 5 consecutive PH x PW planes.
-__device__ __forceinline__ void lk_products(const float* s1, const float* s2, float* prod) {
-  for (int i = threadIdx.x; i < PH * PW; i += NT) {
-    const int gy = i / PW, gx = i % PW;
-    const int o = gy * SW + gx;
-    float p[5];
-    lk_grad_products(s1[o], s1[o + 1], s1[o + SW], s1[o + SW + 1], s2[o], s2[o + 1], s2[o + SW],
-                     s2[o + SW + 1], p);
-#pragma unroll
-    for (int k = 0; k < 5; ++k) prod[k * PH * PW + i] = p[k];
-  }
-}
-
-// The Cramer solve of the five window sums s at global (gy, gx) in an
-// H x W frame, det == 0 -> 0 (cv::divide), and the frame's 1-px ring
-// zeroed.
-__device__ __forceinline__ void lk_cramer(const float* s, int gy, int gx, int H, int W, float* u,
-                                          float* v) {
+// The Cramer solve of the five window sums s, det == 0 -> 0 (cv::divide).
+__device__ __forceinline__ void lk_solve2x2(const float* s, float* u, float* v) {
   const float det = s[0] * s[1] - s[2] * s[2];
   const bool ok = det != 0.0f;
   const float den = ok ? det : 1.0f;
-  const float uu = (ok ? s[2] * s[4] - s[1] * s[3] : 0.0f) / den;
-  const float vv = (ok ? s[3] * s[2] - s[0] * s[4] : 0.0f) / den;
+  *u = (ok ? s[2] * s[4] - s[1] * s[3] : 0.0f) / den;
+  *v = (ok ? s[3] * s[2] - s[0] * s[4] : 0.0f) / den;
+}
+
+// lk_solve2x2 at global (gy, gx) in an H x W frame, the frame's 1-px ring
+// zeroed.
+__device__ __forceinline__ void lk_cramer(const float* s, int gy, int gx, int H, int W, float* u,
+                                          float* v) {
+  float uu, vv;
+  lk_solve2x2(s, &uu, &vv);
   const bool keep = gy > 0 && gy < H - 1 && gx > 0 && gx < W - 1;
   *u = keep ? uu : 0.0f;
   *v = keep ? vv : 0.0f;
-}
-
-// The LK tail at tile position (ty, tx), global (gy, gx) in an H x W frame:
-// 3x3 window sums (rows first, then columns, as
-// ops/window.sum3x3_interior), then lk_cramer.
-__device__ __forceinline__ void lk_solve(const float* prod, int ty, int tx, int gy, int gx,
-                                         int H, int W, float* u, float* v) {
-  float s[5];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    const float* p = prod + k * PH * PW + ty * PW + tx;
-    const float r0 = (p[0] + p[PW]) + p[2 * PW];
-    const float r1 = (p[1] + p[PW + 1]) + p[2 * PW + 1];
-    const float r2 = (p[2] + p[PW + 2]) + p[2 * PW + 2];
-    s[k] = (r0 + r1) + r2;
-  }
-  lk_cramer(s, gy, gx, H, W, u, v);
 }
 
 }  // namespace oft

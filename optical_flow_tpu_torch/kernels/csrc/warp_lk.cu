@@ -57,8 +57,9 @@
 //   form the raw upsampled value again at each output for du + up.
 // - The LK tail lives in registers: a lane forms its warped column row by
 //   row, gets the right neighbour by a shuffle, keeps the gradient products
-//   of its last three rows, and forms the 3x3 window sums in lk_solve's
-//   order with two more shuffles. No warped or product plane is stored.
+//   of its last three rows, and forms the 3x3 window sums in
+//   sum3x3_interior's order (rows, then columns) with two more shuffles.
+//   No warped or product plane is stored.
 // Shared memory grows with C (about 55 KB for K3 at C = 4 and WR = 8, so
 // four blocks share an SM); a C whose block does not fit is refused at
 // launch. Every product and sum has the operands and order of the plain
@@ -75,9 +76,9 @@ struct Tile {
   int row0, col0, Hg, Wg, halo, ocr;
 };
 
-// The tile of K3/K4/K5 (K1 and K2 keep common.cuh's TH x TW): WNW warps;
-// a warp walks WR output rows (a template parameter, 4 or 8, chosen by the
-// launcher), so a block covers WTH = WNW * WR output rows.
+// The tile of K3/K4/K5: WNW warps; a warp walks WR output rows (a template
+// parameter, 4 or 8, chosen by the launcher), so a block covers WTH = WNW *
+// WR output rows.
 constexpr int WL = 32;         // lanes: one column of the warped grid each
 constexpr int WTW = WL - 3;    // output columns of a block
 constexpr int WNW = 8;         // warps of a block

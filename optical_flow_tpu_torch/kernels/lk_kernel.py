@@ -4,8 +4,12 @@ Replaces the TPU kernel ``optical_flow_tpu/kernels/lk_kernel.py::
 _lk_pallas_batched`` (pallas_call at :173). One launch computes the 2x2
 gradients of both frames, the five products, the 3x3 interior window sums
 and the Cramer solve with det == 0 -> 0, and zeroes the 1-px ring; only the
-two frames are read and only (u, v) written. Its plain version is
-``lucas_kanade_plain`` (= ``flow/lk.lucas_kanade_torch``).
+two frames are read and only (u, v) written. A warp owns a strip of rows
+and 29 output columns (one frame column a lane) or 60 (two a lane), and
+keeps the whole LK tail in registers (no shared memory, no barrier); the
+launcher picks the strip's shape by the grid. Its plain version is
+``lucas_kanade_plain`` (= ``flow/lk.lucas_kanade_torch``); the kernel
+equals it bit for bit.
 """
 
 from __future__ import annotations

@@ -4,9 +4,12 @@ Replaces the TPU kernel ``scripts/tpu_pyrup_poc.py::pyrup_pallas``
 (pallas_call at :40, kernel :22). It computes ``ops.pyramid.pyr_up`` (rows
 first, then columns, cv::pyrUp's asymmetric border) of ``u`` and ``v`` in
 one launch: two input and two output pointers, so no stacked copy is made.
-The border is computed in the kernel, so no padded copy is made either.
-Its plain version is ``pyr_up_pair_plain``, ``pyr_up`` of each plane; the
-kernel equals it bit for bit.
+The border is computed in the kernel, so no padded copy is made either. A
+thread owns two coarse columns and walks a strip of coarse rows, loading
+each once; it writes each output row as one 16-byte store where the coarse
+width is even (two 8-byte stores where it is odd). Its plain version is
+``pyr_up_pair_plain``, ``pyr_up`` of each plane; the kernel equals it bit
+for bit.
 """
 
 from __future__ import annotations

@@ -90,7 +90,18 @@ def _close_where(ok, a, b, atol, rtol=1e-7):
 # ---------------------------------------------------------------- K1: lk
 
 
-@pytest.mark.parametrize("shape", [(64, 128), (37, 53), (96, 200), (3, 40, 64)])
+# Shapes that leave partial warps and strips of the CUDA kernel (29 or 60
+# columns a warp, strips of 2 or 4 rows, 4 strips a block), and the smallest
+# planes.
+_K1_RAGGED = [(2, 135, 271), (3, 3), (3, 7), (2, 7, 57), (9, 60), (15, 31), (17, 87), (28, 29),
+              (31, 59), (33, 30)]
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [pytest.param(s, id=f"shape{i}") for i, s in enumerate([(64, 128), (37, 53), (96, 200), (3, 40, 64)])]
+    + [pytest.param(s, id="x".join(map(str, s))) for s in _K1_RAGGED],
+)
 def test_lk_plain_matches_jax(shape):
     from optical_flow_tpu.kernels.lk_kernel import lucas_kanade_pallas
 
@@ -321,13 +332,19 @@ def _ok_mask(w1, w2):
 
 @pytest.mark.cuda
 def test_lk_kernel_on_card(cuda_device):
+    """Both sides of the launcher's strip rule: 2-row strips of one column a
+    lane (small grids), 4-row strips of two (a 1080^2 grid or a batch that
+    large; 8-byte accesses at even widths), with partial warps and blocks."""
     rng = np.random.RandomState(1)
-    a, b = _on(cuda_device, rng, 2, 135, 135), _on(cuda_device, rng, 2, 135, 135)
-    u, v = _counted("oft_lk", lambda: lucas_kanade_cuda(a, b))
-    u0, v0 = lucas_kanade_plain(a, b)
-    ok = _ok_mask(a, b)
-    _masked_equal(ok, u, u0, 2e-5)
-    _masked_equal(ok, v, v0, 2e-5)
+    big = [(1080, 1080), (1, 1080, 1000), (1, 1081, 1001), (1, 1089, 1021), (1, 1087, 1022),
+           (32, 127, 119), (32, 129, 120)]
+    for shape in [(2, 135, 135), (540, 540)] + _K1_RAGGED + big:
+        a, b = _on(cuda_device, rng, *shape), _on(cuda_device, rng, *shape)
+        u0, v0 = lucas_kanade_plain(a, b)
+        ok = _ok_mask(a, b)
+        u, v = _counted("oft_lk", lambda: lucas_kanade_cuda(a, b))
+        _masked_equal(ok, u, u0, 0.0)
+        _masked_equal(ok, v, v0, 0.0)
 
 
 @pytest.mark.cuda

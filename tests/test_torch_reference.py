@@ -132,7 +132,16 @@ def test_saturating_temporal_diff_and_features_match_jax():
 # ----------------------------------------------------------------- S1 plain
 
 
-@pytest.mark.parametrize("shape", [(17, 23), (2, 8, 6), (1, 5), (5, 1), (1, 1), (135, 135)])
+@pytest.mark.parametrize(
+    "shape",
+    [pytest.param(s, id=f"shape{i}")
+     for i, s in enumerate([(17, 23), (2, 8, 6), (1, 5), (5, 1), (1, 1), (135, 135)])]
+    # odd and even coarse widths: the CUDA kernel's 8-byte and 16-byte stores,
+    # at 1 coarse row a thread and (the last two) at 2
+    + [pytest.param(s, id="x".join(map(str, s)))
+       for s in [(2, 135, 135), (270, 271), (1, 9), (9, 1), (2, 7, 5), (33, 64), (2, 17, 66),
+                 (540, 541), (8, 135, 136)]],
+)
 def test_pyrup_pair_plain_matches_jax(shape):
     rng = np.random.RandomState(4)
     u = (rng.randn(*shape) * 3).astype(np.float32)
@@ -272,14 +281,19 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_pyrup_kernel_on_card_equals_plain(cuda_device):
+    """Odd and even coarse widths on both sides of the launcher's strip rule
+    (1 coarse row a thread; 2 from a 540^2-sized grid: the last five)."""
     rng = np.random.RandomState(6)
-    for shape in [(135, 135), (540, 540), (2, 7, 5), (1, 1), (1, 9)]:
+    for shape in [(135, 135), (2, 7, 5), (1, 1), (1, 9), (2, 135, 135), (270, 271), (9, 1),
+                  (33, 64), (2, 17, 66), (540, 540), (540, 541), (537, 530), (543, 511),
+                  (8, 135, 136)]:
         u, v = (_t(rng.randn(*shape) * 3).to(cuda_device) for _ in range(2))
+        want = pyr_up_pair_plain(u, v)
         before = kernels.launch_counts()["oft_pyrup"]
         got = pyr_up_pair_cuda(u, v)
         torch.cuda.synchronize()
         assert kernels.launch_counts()["oft_pyrup"] == before + 1
-        for g, w in zip(got, pyr_up_pair_plain(u, v)):
+        for g, w in zip(got, want):
             assert torch.equal(g, w)
 
 
