@@ -26,13 +26,15 @@ Phases, each printing one line (any failure raises and exits non-zero):
      turns with ``clone`` over several rounds, and bit for bit at ragged
      lengths and an unaligned start;
   4. the slice: VideoPipeline(VideoConfig.fast()) on 12 synthetic 720x1280
-     BGR frames, once through the kernels and once on the plain path, flows
-     compared by quantiles and gesture votes within 1%, exact launch counts;
+     BGR frames, once through the kernels (the steady push replayed as a
+     CUDA graph, the default) and once on the plain path, flows compared by
+     quantiles and gesture votes within 1%, exact launch counts;
   5. K4 through the controller: corrected coarse_to_fine with level_iters=2
      on a 1080^2 textured pair with a known sub-pixel shift;
   6. where the time goes: the kernel path's device busy time, idle share
-     and device time by kernel from one torch.profiler trace, written in
-     full to chiprun_out/profile_slice.json;
+     and device time by kernel from one torch.profiler trace, its steady
+     push eager and then replayed as a CUDA graph, written in full to
+     chiprun_out/profile_slice_{eager,graph}.json;
   7. the mesh slice: VideoPipeline(VideoConfig.fast(), mesh=2x2 tile grid on
      the one card) on phase 4's frames, flows and votes equal to phase 4's
      kernel path bit for bit, exact launch counts;
@@ -44,14 +46,22 @@ Phases, each printing one line (any failure raises and exits non-zero):
      phase 4's frames, once through the kernels (K1 at all four levels, S1
      between them) and once with FlowConfig(impl='torch'), flows and votes
      compared, exact launch counts; the card's uint8 gray against the CPU's;
-     then phase 6's profile of the kernel path in this configuration
-     (chiprun_out/profile_reference.json);
+     then phase 6's profiles of the kernel path in this configuration
+     (chiprun_out/profile_reference_{eager,graph}.json);
  10. the probes S2-S4 on use-once inputs, device time of back-to-back
      launches (utils/profiling.time_use_once), each against its plain
      version bit for bit, with the copy and elementwise rates they measure
      at their own shapes, and the plain version and library call of each
      variant where they differ (S2's rows, S4 in bfloat16); then the copy rate (S2) and float32 elementwise
-     rate (S4) that the card sustains at sizes that fill it many times over.
+     rate (S4) that the card sustains at sizes that fill it many times over;
+ 11. the host path on phase 4's frames, for both configurations: push with
+     graph=False equal to phases 4 and 9 (graphs on) bit for bit with the
+     same launch counts, run(prefetch=2) equal to run(prefetch=0) bit for
+     bit, run_chunked (fast preset; two chunks of 5 and a 2-frame tail)
+     against phase 4 at the slice bar and its replayed chunk step equal to
+     the eager one, replay_video of the frames written raw equal to run,
+     then host ms per frame of eager push, graph push, run(prefetch=2) and
+     run_chunked(16).
 Phase 3 also holds S1 at the three upsamples of a 1080^2 frame, and over
 a ragged sweep at odd and even coarse widths on both sides of its
 launcher's strip rule, bit for bit, and K1 at every level of the reference path, and times the one
@@ -59,7 +69,7 @@ PyTorch call that computes K2's and S1's function (cuDNN convolutions,
 TF32 off; the pyramid's: one a level). At the end, whether the pyramid's
 grids (one a level, programmatic dependent launch) can be captured into a
 CUDA graph (reported, not required). Launch counters are reset just before
-the runs of phases 4, 5, 7, 8, 9 and 10 and read just after each. Then one
+the runs of phases 4, 5, 7, 8, 9, 10 and 11 (c) and read just after each. Then one
 JSON line with the kernels (each with its least time on the card, from
 utils/profiling's byte and operation model against the published H100
 peaks, its time at the rates phase 10 sustained, its device time on
@@ -139,6 +149,8 @@ RUNS = {"stream": "VideoPipeline.push (phase 4)",
         "reference": "reference stream (phase 9)", "probes": "probes (phase 10)"}
 PROFILE_WARMUP, PROFILE_FRAMES = 5, 40
 REFERENCE_PROFILE_FRAMES = 20
+HOST_WARM, HOST_TIMED = 5, 30  # phase 11 (e): frames before and inside the timed window
+CHUNK, CHUNKS_WARM, CHUNKS_TIMED = 16, 2, 4  # run_chunked: the first chunk, the capture, then replays
 USE_ONCE_SETS = 30  # timed calls of a kernel on fresh inputs (device time)
 # phase 10's sustained rates: S2's column interleave and S4's float32 chain at
 # sizes that fill the card many times over, on fresh inputs far beyond its L2
@@ -243,6 +255,58 @@ def masked_err(a, b, mask):
 
     z = torch.zeros((), dtype=a.dtype, device=a.device)
     return float((torch.where(mask, a, z) - torch.where(mask, b, z)).abs().max())
+
+
+def flatten_results(results):
+    """Chunked results (a leading batch axis, or one frame for the tail) as
+    one list of per-pair FrameResults."""
+    from optical_flow_tpu_torch.pipeline.gesture import GestureResult
+    from optical_flow_tpu_torch.pipeline.video import FrameResult
+
+    out = []
+    for r in results:
+        if r.u.ndim == 2:
+            out.append(r)
+            continue
+        for k in range(r.u.shape[0]):
+            out.append(FrameResult(r.u[k], r.v[k], GestureResult(*(x[k] for x in r.gesture))))
+    return out
+
+
+def same_results(what, got, want):
+    """Raise unless flows, magnitudes, votes and centroids are equal bit for bit."""
+    import torch
+
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} results, want {len(want)}")
+    for k, (a, b) in enumerate(zip(got, want)):
+        pairs = [(a.u, b.u), (a.v, b.v)] + list(zip(a.gesture, b.gesture))
+        if not all(torch.equal(x, y) for x, y in pairs):
+            raise AssertionError(f"{what}: result {k} differs")
+
+
+def slice_bar(what, got, want):
+    """The slice bar (median |dflow| < 1e-3 px, q99 < 0.02 px on the interior,
+    votes within 1%); returns the quantiles and the max |d(u, v)|."""
+    import torch
+
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} results, want {len(want)}")
+    d, max_abs = [], 0.0
+    inner = (slice(8, -8), slice(8, -8))
+    for a, b in zip(got, want):
+        if not all(bool(torch.isfinite(x).all()) for x in (a.u, a.v, b.u, b.v)):
+            raise AssertionError(f"{what}: flow is not finite")
+        d.append(torch.hypot(a.u[inner] - b.u[inner], a.v[inner] - b.v[inner]).flatten())
+        max_abs = max(max_abs, float((a.u - b.u).abs().max()), float((a.v - b.v).abs().max()))
+        x, y = int(a.gesture.votes), int(b.gesture.votes)
+        if abs(x - y) > max(1.0, 0.01 * max(x, y)):
+            raise AssertionError(f"{what}: votes differ beyond 1%: {x} vs {y}")
+    d = torch.cat(d).double().cpu().numpy()
+    med, q99 = float(np.median(d)), float(np.quantile(d, 0.99))
+    if not (med < 1e-3 and q99 < 0.02):
+        raise AssertionError(f"{what}: median {med:.3g}, q99 {q99:.3g}")
+    return {"flow_median": med, "flow_q99": q99, "flow_max_abs_diff": max_abs}
 
 
 def time_pair(plain, kernel, iters):
@@ -665,13 +729,13 @@ def phase_kernels(device, iters=20):
     return results
 
 
-def run_stream(config, frames, device, warmup=3, mesh=None):
+def run_stream(config, frames, device, warmup=3, mesh=None, graph=True):
     """Push every frame; return (results, steady-state ms per frame)."""
     import torch
 
     from optical_flow_tpu_torch.pipeline.video import VideoPipeline
 
-    pipe = VideoPipeline(config, device=device, mesh=mesh)
+    pipe = VideoPipeline(config, device=device, mesh=mesh, graph=graph)
     results, ms = [], []
     for k, frame in enumerate(frames):
         t0 = time.perf_counter()
@@ -686,8 +750,6 @@ def run_stream(config, frames, device, warmup=3, mesh=None):
 
 def phase_slice(device, frames, size):
     import dataclasses
-
-    import torch
 
     from optical_flow_tpu_torch import kernels
     from optical_flow_tpu_torch.config import VideoConfig
@@ -706,26 +768,16 @@ def phase_slice(device, frames, size):
     F = len(frames)
     check_counts("slice", counts,
                  {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2)})
-    if len(res_k) != F - 2 or len(res_p) != F - 2:
-        raise AssertionError(f"expected {F - 2} results, got {len(res_k)} and {len(res_p)}")
-    d, votes = [], []
-    for rk, rp in zip(res_k, res_p):
-        for x in (rk.u, rk.v):
-            if tuple(x.shape) != (size, size) or not bool(torch.isfinite(x).all()):
-                raise AssertionError("flow is not finite or has the wrong shape")
-        inner = (slice(8, -8), slice(8, -8))
-        d.append(torch.hypot(rk.u[inner] - rp.u[inner], rk.v[inner] - rp.v[inner]).flatten())
-        a, b = int(rk.gesture.votes), int(rp.gesture.votes)
-        votes.append((a, b))
-        if abs(a - b) > max(1.0, 0.01 * max(a, b)):
-            raise AssertionError(f"gesture votes differ beyond 1%: kernel {a}, plain {b}")
-    d = torch.cat(d).double().cpu().numpy()
-    med, q99 = float(np.median(d)), float(np.quantile(d, 0.99))
-    if not (med < 1e-3 and q99 < 0.02):
-        raise AssertionError(f"slice flow vs plain: median {med:.3g}, q99 {q99:.3g}")
+    if len(res_k) != F - 2:
+        raise AssertionError(f"expected {F - 2} results, got {len(res_k)}")
+    if any(tuple(r.u.shape) != (size, size) for r in res_k):
+        raise AssertionError("flow has the wrong shape")
+    bar = slice_bar("slice flow vs plain", res_k, res_p)
+    votes = [(int(a.gesture.votes), int(b.gesture.votes)) for a, b in zip(res_k, res_p)]
     out = {
-        "frames": F, "launches": counts, "flow_median": med, "flow_q99": q99,
-        "votes": votes, "ms_per_frame_kernels": float(np.median(ms_k)),
+        "frames": F, "launches": counts, "flow_median": bar["flow_median"],
+        "flow_q99": bar["flow_q99"], "votes": votes,
+        "ms_per_frame_kernels": float(np.median(ms_k)),
         "ms_per_frame_plain": float(np.median(ms_p)),
         "ms_per_frame_kernels_mean": float(np.mean(ms_k)),
         "ms_per_frame_plain_mean": float(np.mean(ms_p)),
@@ -785,8 +837,6 @@ def phase_mesh_slice(device, frames, size, stream_results):
     (135^2, untileable), K3 full frame once (270^2: its 135^2 tiles are
     odd), K3 tiled at 540^2 and 1080^2 (one launch per tile); P1 once per
     tile at the mesh's first sharded call."""
-    import torch
-
     from optical_flow_tpu_torch import kernels
     from optical_flow_tpu_torch.config import VideoConfig
 
@@ -799,16 +849,8 @@ def phase_mesh_slice(device, frames, size, stream_results):
     check_counts("mesh slice", counts,
                  {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": F - 2,
                   "oft_pyrup_warp_lk_tile": 2 * tiles * (F - 2), "oft_tile_copy": tiles})
-    if len(res) != len(stream_results):
-        raise AssertionError(f"mesh slice gave {len(res)} results, phase 4 {len(stream_results)}")
-    votes = []
-    for rm, rk in zip(res, stream_results):
-        if not (torch.equal(rm.u, rk.u) and torch.equal(rm.v, rk.v)):
-            raise AssertionError("the mesh slice's flow differs from phase 4's kernel path")
-        a, b = int(rm.gesture.votes), int(rk.gesture.votes)
-        if a != b or bool(rm.gesture.detected) != bool(rk.gesture.detected):
-            raise AssertionError(f"the mesh slice's votes {a} differ from phase 4's {b}")
-        votes.append(a)
+    same_results("the mesh slice vs phase 4's kernel path", res, stream_results)
+    votes = [int(r.gesture.votes) for r in res]
     return {"frames": F, "launches": counts, "votes": votes,
             "ms_per_frame_median": float(np.median(ms)), "ms_per_frame_mean": float(np.mean(ms))}
 
@@ -873,34 +915,21 @@ def phase_reference(device, frames):
         raise AssertionError("the plain reference path launched a kernel")
     F = len(frames)
     check_counts("reference slice", counts, {"oft_lk": 4 * (F - 2), "oft_pyrup": 3 * (F - 2)})
-    if len(res_k) != F - 2 or len(res_p) != F - 2:
-        raise AssertionError(f"expected {F - 2} results, got {len(res_k)} and {len(res_p)}")
-    d, votes, max_abs, identical = [], [], 0.0, True
-    for rk, rp in zip(res_k, res_p):
-        for x in (rk.u, rk.v, rp.u, rp.v):
-            if tuple(x.shape) != (SIZE, SIZE) or not bool(torch.isfinite(x).all()):
-                raise AssertionError("reference flow is not finite or has the wrong shape")
-        identical &= torch.equal(rk.u, rp.u) and torch.equal(rk.v, rp.v)
-        max_abs = max(max_abs, float((rk.u - rp.u).abs().max()), float((rk.v - rp.v).abs().max()))
-        inner = (slice(8, -8), slice(8, -8))
-        d.append(torch.hypot(rk.u[inner] - rp.u[inner], rk.v[inner] - rp.v[inner]).flatten())
-        a, b = int(rk.gesture.votes), int(rp.gesture.votes)
-        votes.append((a, b))
-        if abs(a - b) > max(1.0, 0.01 * max(a, b)):
-            raise AssertionError(f"reference votes differ beyond 1%: kernel {a}, plain {b}")
-    d = torch.cat(d).double().cpu().numpy()
-    med, q99 = float(np.median(d)), float(np.quantile(d, 0.99))
-    if not (med < 1e-3 and q99 < 0.02):
-        raise AssertionError(f"reference flow vs plain: median {med:.3g}, q99 {q99:.3g}")
+    if len(res_k) != F - 2:
+        raise AssertionError(f"expected {F - 2} results, got {len(res_k)}")
+    if any(tuple(r.u.shape) != (SIZE, SIZE) for r in res_k):
+        raise AssertionError("reference flow has the wrong shape")
+    bar = slice_bar("reference flow vs plain", res_k, res_p)
+    identical = all(torch.equal(a.u, b.u) and torch.equal(a.v, b.v) for a, b in zip(res_k, res_p))
+    votes = [(int(a.gesture.votes), int(b.gesture.votes)) for a, b in zip(res_k, res_p)]
     return {
-        "frames": F, "launches": counts, "bit_identical": bool(identical),
-        "flow_max_abs_diff": max_abs, "flow_median": med, "flow_q99": q99, "votes": votes,
+        "frames": F, "launches": counts, "bit_identical": bool(identical), **bar, "votes": votes,
         "flow_max_abs_px": max(float(r.u.abs().max()) for r in res_k),
         "gray_card_vs_cpu": gray,
         "ms_per_frame_kernels": float(np.median(ms_k)), "ms_per_frame_plain": float(np.median(ms_p)),
         "ms_per_frame_kernels_mean": float(np.mean(ms_k)),
         "ms_per_frame_plain_mean": float(np.mean(ms_p)),
-    }
+    }, res_k
 
 
 def phase_probes(device, n=100):
@@ -1056,6 +1085,135 @@ def phase_probes(device, n=100):
             "bf16_chain_roofline": bf16}
 
 
+def cycled(frames, n):
+    """The first n frames of the frames repeated cyclically."""
+    return [frames[k % len(frames)] for k in range(n)]
+
+
+def steady_ms(results, n_warm, n_timed):
+    """Host ms per frame over the results after the first `n_warm` of an
+    iterator of results (each one frame), synchronized at both ends of the
+    window."""
+    import torch
+
+    it = iter(results)
+    for _ in range(n_warm):
+        next(it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        next(it)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_timed
+
+
+def phase_host_path(device, frames, stream_runs):
+    """The per-frame host path on phase 4's frames. `stream_runs` maps
+    "fast" and "reference" to (results, launch counts) of phases 4 and 9,
+    whose steady pushes replayed CUDA graphs (the default).
+    (a) push with graph=False: equal to them bit for bit, with the same
+        launch counts;
+    (b) run(prefetch=2) against run(prefetch=0), bit for bit;
+    (c) run_chunked(chunk_size=5, prefetch=2) (two chunks, a two-frame
+        tail) against phase 4 at the slice bar, its max |d| printed; then
+        on the same pipeline run_chunked over 10 frames (its chunk step now
+        replayed) and push of the last two frames, which must continue
+        without a warm-up and equal the first run bit for bit;
+    (d) replay_video of the frames written raw, equal to run bit for bit;
+    (e) host ms per frame, steady state, one synchronize at each end of the
+        window: eager push, graph push, run(prefetch=2) and, for the fast
+        preset, run_chunked(chunk_size=16, prefetch=2) over CHUNKS_TIMED
+        chunks after CHUNKS_WARM (the first chunk, then the capture)."""
+    import pathlib
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.config import VideoConfig
+    from optical_flow_tpu_torch.pipeline.video import VideoPipeline, replay_video
+
+    configs = {"fast": VideoConfig.fast(size=(SIZE, SIZE)), "reference": VideoConfig()}
+    out = {}
+    for kind, cfg in configs.items():
+        want, want_counts = stream_runs[kind]
+        kernels.reset_launch_counts()
+        eager, _ = run_stream(cfg, frames, device, graph=False)
+        counts = kernels.launch_counts()
+        if counts != want_counts:
+            raise AssertionError(f"{kind}: eager launch counts {counts} != graph {want_counts}")
+        same_results(f"{kind} eager push vs graph push", eager, want)
+        del eager
+        staged = list(VideoPipeline(cfg, device=device).run(frames, prefetch=2))
+        same_results(f"{kind} run(prefetch=2) vs prefetch=0",
+                     staged, list(VideoPipeline(cfg, device=device).run(frames, prefetch=0)))
+        same_results(f"{kind} run(prefetch=2) vs push", staged, want)
+        out[kind] = {"graph_equals_eager": True, "launches": {k: v for k, v in counts.items() if v},
+                     "prefetch_equals_inline": True}
+        if kind == "fast":
+            out[kind]["chunked"] = chunked_check(device, cfg, frames, want)
+            raw = pathlib.Path(__file__).resolve().parent / "chiprun_out" / "phase11_frames.raw"
+            raw.parent.mkdir(exist_ok=True)
+            try:
+                raw.write_bytes(b"".join(np.ascontiguousarray(f).tobytes() for f in frames))
+                spec = f"pipe:{FRAME_HW[1]}x{FRAME_HW[0]}:{raw}"
+                same_results("replay_video vs run", replay_video(spec, cfg, device=device), staged)
+            finally:
+                raw.unlink(missing_ok=True)
+            out[kind]["replay_video_equals_run"] = True
+        del staged
+
+    timing = {"frames_warm": HOST_WARM, "frames_timed": HOST_TIMED}
+    for kind, cfg in configs.items():
+        stream = cycled(frames, HOST_WARM + HOST_TIMED)
+        t = {}
+        for graph, mode in ((False, "eager_push"), (True, "graph_push")):
+            pipe = VideoPipeline(cfg, device=device, graph=graph)
+            t[mode] = steady_ms((pipe.push(f) for f in stream), HOST_WARM, HOST_TIMED)
+        pipe = VideoPipeline(cfg, device=device)
+        # run yields from the third frame on
+        t["run_prefetch2"] = steady_ms(pipe.run(stream, prefetch=2), HOST_WARM - 2,
+                                       HOST_TIMED)
+        if kind == "fast":
+            n = CHUNK * (CHUNKS_WARM + CHUNKS_TIMED)
+            chunks = pipe.run_chunked(cycled(frames, n), chunk_size=CHUNK, prefetch=2)
+            t["run_chunked"] = steady_ms(chunks, CHUNKS_WARM, CHUNKS_TIMED) / CHUNK
+            t["chunks"] = {"size": CHUNK, "warm": CHUNKS_WARM, "timed": CHUNKS_TIMED}
+        timing[kind] = t
+    out["ms_per_frame"] = timing
+    log(f"  host path ms per frame: {json.dumps(timing)}")
+    return out
+
+
+def chunked_check(device, cfg, frames, want):
+    """Phase 11 (c); returns what it measured."""
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.pipeline.video import VideoPipeline
+
+    F = len(frames)
+    pipe = VideoPipeline(cfg, device=device)
+    kernels.reset_launch_counts()
+    first = list(pipe.run_chunked(frames, chunk_size=5, prefetch=2))
+    counts = kernels.launch_counts()
+    shapes = [tuple(r.u.shape) for r in first]
+    if shapes != [(3, SIZE, SIZE), (5, SIZE, SIZE), (SIZE, SIZE), (SIZE, SIZE)]:
+        raise AssertionError(f"run_chunked result shapes {shapes}")
+    # a call per chunk (the first, a step) and per tail frame, each a batch
+    check_counts("run_chunked", counts,
+                 {"oft_pyramid": 4, "oft_lk": 4, "oft_pyrup_warp_lk": 12})
+    flat = flatten_results(first)
+    bar = slice_bar("run_chunked vs push", flat, want)
+    if pipe.state()["frame_idx"] != F:
+        raise AssertionError(f"run_chunked left frame_idx {pipe.state()['frame_idx']}")
+    # again over 10 frames: chunk 2 replays the step captured above; then the
+    # last two frames by push, from the carry, with no warm-up
+    again = flatten_results(pipe.run_chunked(frames[:10], chunk_size=5, prefetch=2))
+    tail = [pipe.push(f) for f in frames[10:]]
+    if any(r is None for r in tail):
+        raise AssertionError("push after run_chunked went through a warm-up")
+    same_results("run_chunked replayed vs eager", again + tail, flat)
+    log(f"  run_chunked(5) vs push: {json.dumps(bar)}")
+    return dict(bar, launches={k: v for k, v in counts.items() if v}, replay_equals_eager=True,
+                state_continues=True)
+
+
 def _busy_ms(intervals):
     """Length of the union of (start, end) intervals, in ms (input µs)."""
     busy, end = 0.0, -float("inf")
@@ -1066,13 +1224,17 @@ def _busy_ms(intervals):
     return busy / 1e3
 
 
-def phase_profile(device, config, name, warmup=PROFILE_WARMUP, n=PROFILE_FRAMES):
-    """Where the time of the kernel path of `config` goes. One pipeline
-    takes `warmup` frames, then `n` frames timed on the host clock (push +
-    synchronize per frame, no tracer), then `n` more under torch.profiler
-    (CUDA activity only), timed the same way. Device busy time is the union
-    of the traced device events; the idle share is 1 - busy / wall of the
-    traced frames. Writes the per-kernel totals to chiprun_out/`name`."""
+def phase_profile(device, config, name, graph, warmup=PROFILE_WARMUP, n=PROFILE_FRAMES):
+    """Where the time of the kernel path of `config` goes, its steady push
+    eager (graph=False) or replayed as a CUDA graph (graph=True). One
+    pipeline takes `warmup` frames (the graph is captured at the third),
+    then `n` frames timed on the host clock (push + synchronize per frame,
+    no tracer), then `n` more under torch.profiler (CUDA activity only),
+    timed the same way, with CUDA events around each push. Device busy time
+    is the union of the traced device events; the idle share is 1 - busy /
+    wall of the traced frames; the event span is the device timeline from
+    the start of a push to its end, gaps included. Writes the per-kernel
+    totals to chiprun_out/`name`."""
     import pathlib
 
     import torch
@@ -1082,21 +1244,29 @@ def phase_profile(device, config, name, warmup=PROFILE_WARMUP, n=PROFILE_FRAMES)
     from optical_flow_tpu_torch.pipeline.video import VideoPipeline
 
     frames = synthetic_frames(np.random.RandomState(SEED + 2), warmup + 2 * n, FRAME_HW)
-    pipe = VideoPipeline(config, device=device)
+    pipe = VideoPipeline(config, device=device, graph=graph)
+    spans = []
 
-    def push_timed(batch):
+    def push_timed(batch, events=False):
         ms = []
         for frame in batch:
             t0 = time.perf_counter()
+            if events:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
             pipe.push(frame)
+            if events:
+                end.record()
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
+            if events:
+                spans.append(start.elapsed_time(end))
         return ms
 
     push_timed(frames[:warmup])
     untraced = push_timed(frames[warmup : warmup + n])
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        traced = push_timed(frames[warmup + n :])
+        traced = push_timed(frames[warmup + n :], events=True)
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
         raise AssertionError("the trace holds no device events")
@@ -1109,7 +1279,7 @@ def phase_profile(device, config, name, warmup=PROFILE_WARMUP, n=PROFILE_FRAMES)
         r["ms"] += (e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])
     summary = {
-        "frames": n,
+        "graph": pipe.graph, "frames": n,
         "untraced_ms_per_frame_median": float(np.median(untraced)),
         "untraced_ms_per_frame_mean": float(np.mean(untraced)),
         "traced_ms_per_frame_median": float(np.median(traced)),
@@ -1118,6 +1288,7 @@ def phase_profile(device, config, name, warmup=PROFILE_WARMUP, n=PROFILE_FRAMES)
         "device_busy_ms_per_frame": busy / n,
         "device_events_per_frame": len(events) / n,
         "idle_share": 1.0 - busy / wall,
+        "event_span_ms_per_frame_median": float(np.median(spans)),
         "top": [{"name": k[:60], "calls_per_frame": v["calls"] / n, "ms_per_frame": v["ms"] / n}
                 for k, v in top[:8]],
     }
@@ -1215,19 +1386,25 @@ def main() -> int:
     from optical_flow_tpu_torch.config import VideoConfig
 
     fast = VideoConfig.fast(size=(SIZE, SIZE))
-    log(f"[6 profile] {json.dumps(phase_profile(device, fast, 'profile_slice.json'))}")
+    for graph, mode in ((False, "eager"), (True, "graph")):
+        prof = phase_profile(device, fast, f"profile_slice_{mode}.json", graph)
+        log(f"[6 profile, {mode}] {json.dumps(prof)}")
     msl = phase_mesh_slice(device, frames, SIZE, stream_results)
     log(f"[7 mesh slice] {json.dumps(msl)}")
-    del stream_results
     mctl = phase_mesh_controller(device, SIZE)
     log(f"[8 mesh controller] {json.dumps(mctl)}")
-    ref = phase_reference(device, frames)
+    ref, ref_results = phase_reference(device, frames)
     log(f"[9 reference slice] {json.dumps(ref)}")
-    ref_prof = phase_profile(device, VideoConfig(), "profile_reference.json",
+    for graph, mode in ((False, "eager"), (True, "graph")):
+        prof = phase_profile(device, VideoConfig(), f"profile_reference_{mode}.json", graph,
                              n=REFERENCE_PROFILE_FRAMES)
-    log(f"[9 reference profile] {json.dumps(ref_prof)}")
+        log(f"[9 reference profile, {mode}] {json.dumps(prof)}")
     prb = phase_probes(device)
     log(f"[10 probes] {json.dumps(prb)}")
+    host = phase_host_path(device, frames, {"fast": (stream_results, sl["launches"]),
+                                            "reference": (ref_results, ref["launches"])})
+    log(f"[11 host path] {json.dumps(host)}")
+    del stream_results, ref_results
     per_kernel["pyramid"]["graph_capture"] = pyramid_graph_capture(device)
     log(f"  pyramid graph capture: {json.dumps(per_kernel['pyramid']['graph_capture'])}")
 

@@ -13,7 +13,11 @@ its plain version to the last bit or nearly; fast math would make ``/``
 approximate and flush denormals.
 
 Each C entry point returns ``cudaGetLastError()``; ``launch`` raises if it
-is not 0 and otherwise adds one to the kernel's count in ``launches``.
+is not 0 and otherwise adds one to the kernel's count in ``launches``. A
+launch captured into a CUDA graph runs only when the graph is replayed, so
+it is not counted there: inside ``captured_launches()`` it goes to the
+graph's own tally, which ``add_launches`` adds to ``launches`` once per
+replay (``pipeline/graphs.py``).
 
 What the compiler allotted each kernel (``ptxas -v``: registers, shared
 memory, spills) is kept beside the library (``ptxas_info``).
@@ -27,6 +31,7 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -69,11 +74,31 @@ launches = dict.fromkeys(_ARGTYPES, 0)
 
 _lib = None
 _lock = threading.Lock()
+_capture = threading.local()  # .tally: the launches of the graph this thread captures
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def add_launches(counts) -> None:
+    """Add a captured graph's launches to ``launches`` (once per replay)."""
+    for name, n in counts.items():
+        launches[name] += n
+
+
+@contextmanager
+def captured_launches():
+    """Tally the launches that this thread captures into a CUDA graph: they
+    are counted in the dict yielded, not in ``launches``. A launch captured
+    outside this context is counted nowhere."""
+    tally = dict.fromkeys(_ARGTYPES, 0)
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
 
 
 def _nvcc() -> str:
@@ -165,13 +190,20 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call entry point ``name`` on ``device``'s current stream; raise on a
-    launch error, count the launch otherwise."""
+    launch error, count the launch otherwise (a captured one in the graph's
+    tally)."""
     lib = library()
     with torch.cuda.device(device):
         err = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    launches[name] += 1
+    if capturing:
+        tally = getattr(_capture, "tally", None)
+        if tally is not None:
+            tally[name] += 1
+    else:
+        launches[name] += 1
 
 
 def check_cuda_f32(name: str, *tensors: torch.Tensor) -> None:

@@ -1,10 +1,13 @@
-"""Video/gesture application pipeline (reference L4): float preprocess,
-pyramidal LK on consecutive preprocessed frames, gesture detection."""
+"""Video/gesture application pipeline (reference L4): preprocess,
+pyramidal LK on consecutive preprocessed frames, gesture detection; the
+steady steps replayed as CUDA graphs on a card (pipeline/graphs.py)."""
 
 from optical_flow_tpu_torch.pipeline.preprocess import (
     dilate3x3,
     erode3x3,
+    gaussian_blur,
     preprocess_frame,
+    resize_cubic,
     sobel3,
     temporal_diff,
     threshold_tozero,
@@ -18,7 +21,9 @@ __all__ = [
     "detect_gesture",
     "dilate3x3",
     "erode3x3",
+    "gaussian_blur",
     "preprocess_frame",
+    "resize_cubic",
     "sobel3",
     "temporal_diff",
     "threshold_tozero",

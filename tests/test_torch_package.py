@@ -27,8 +27,10 @@ def test_import_pulls_in_no_jax():
         "import optical_flow_tpu_torch, optical_flow_tpu_torch.convert\n"
         "import optical_flow_tpu_torch.kernels, optical_flow_tpu_torch.pipeline\n"
         "import optical_flow_tpu_torch.parallel, optical_flow_tpu_torch.kernels.probes\n"
-        "import optical_flow_tpu_torch.utils.profiling\n"
-        "from optical_flow_tpu_torch.pipeline.video import VideoPipeline\n"
+        "import optical_flow_tpu_torch.utils.profiling, optical_flow_tpu_torch.io\n"
+        "import optical_flow_tpu_torch.io.prefetch, optical_flow_tpu_torch.io.video_reader\n"
+        "import optical_flow_tpu_torch.pipeline.graphs\n"
+        "from optical_flow_tpu_torch.pipeline.video import VideoPipeline, replay_video\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'optical_flow_tpu' or m.startswith('optical_flow_tpu.'))\n"
         "assert not bad, bad\n"

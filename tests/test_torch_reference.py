@@ -36,7 +36,9 @@ from optical_flow_tpu_torch.flow.coarse_to_fine import coarse_to_fine_with_image
 from optical_flow_tpu_torch.kernels.pyrup_kernel import pyr_up_pair_cuda, pyr_up_pair_plain
 from optical_flow_tpu_torch.parallel.mesh import flow_mesh
 from optical_flow_tpu_torch.pipeline import preprocess as t_pre
+from optical_flow_tpu_torch.io.prefetch import prefetch_chunks_to_device, prefetch_to_device
 from optical_flow_tpu_torch.pipeline.video import VideoPipeline as TVideoPipeline
+from optical_flow_tpu_torch.pipeline.video import replay_video
 from test_torch_slice import _assert_flow_close, _assert_results_close, _frames, _np, _t
 
 U8_SHARE = 1e-3  # share of uint8 values allowed one apart (resize: 0 at 48^2, 2.6e-6 at 1080^2)
@@ -260,6 +262,16 @@ def test_entry_points_default_to_the_card(monkeypatch):
         TVideoPipeline(t_config.VideoConfig.fast(), device="cuda:0")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flow_mesh(1, 2, 2)
+    # the host path's entry points raise when called, before any frame is read
+    frames = _frames(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prefetch_to_device(iter(frames))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prefetch_chunks_to_device(iter(frames), chunk_size=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        replay_video("pipe:128x72:no-such-file", t_config.VideoConfig.fast(size=(SIZE, SIZE)))
+    assert len(list(prefetch_to_device(iter(frames), device="cpu"))) == 3
+    assert [c.shape[0] for c in prefetch_chunks_to_device(iter(frames), 2, device="cpu")] == [2, 1]
     mesh = flow_mesh(1, 2, 2, devices=["cpu"] * 4)
     assert all(d == torch.device("cpu") for d in mesh.devices.flat)
     _, tc = _configs()
