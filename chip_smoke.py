@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's streaming 1080^2 flow paths (the fast preset,
 unsharded and on a 2x2 tile mesh, and the reference-parity default
-configuration) once on an NVIDIA GPU, and run the probes S2-S4.
+configuration), the sparse tracker, Horn-Schunck and the exact 'shift' warp
+once on an NVIDIA GPU, and run the probes S2-S4.
 
     python3 chip_smoke.py
 
@@ -21,7 +22,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
      1, 4, 8), K1 over a ragged sweep on both sides of its launcher's
      strip rule;
      K2 per level and as the one-call pyramid of a 1080^2 frame (4
-     levels), bit for bit, also over ragged and tiny planes and a pyramid to
+     levels) and of a 720x1280 tracking frame (3 levels), bit for bit, also over ragged and tiny planes and a pyramid to
      1x1; and P1 (the mesh probe's copy kernel) on the probe's tiles, in
      turns with ``clone`` over several rounds, and bit for bit at ragged
      lengths and an unaligned start;
@@ -61,7 +62,19 @@ Phases, each printing one line (any failure raises and exits non-zero):
      against phase 4 at the slice bar and its replayed chunk step equal to
      the eager one, replay_video of the frames written raw equal to run,
      then host ms per frame of eager push, graph push, run(prefetch=2) and
-     run_chunked(16).
+     run_chunked(16);
+ 12. the sparse-tracking path, Horn-Schunck and the 'shift' warp: (a) phase
+     4's frames in gray through examples/trajectory.py's chain with of.cpp's
+     arguments (corners, default SparseLKConfig with each frame's tracking
+     pyramid built once by K2, RansacConfig()), on the card and on the CPU,
+     corner sets, tracks, status and inlier counts compared, the moving
+     patch's (+3, +2) px recovered; (b) phase 5's pair: the known shift from
+     the tracks and the homography, sparse 'shift' against 'gather'; (c)
+     horn_schunck (4 levels, shift_sep warps) within 0.2 px of the shift, its
+     K2 pyramids equal to 'poly'; (d) the 'shift' warp against 'gather' at
+     1080^2, through the controller (K1 at every solve, no K3/K4) and on the
+     2x2 mesh bit for bit; (e) ms per call and device events per call of
+     each entry point, CUDA events after warm-up, one call traced.
 Phase 3 also holds S1 at the three upsamples of a 1080^2 frame, and over
 a ragged sweep at odd and even coarse widths on both sides of its
 launcher's strip rule, bit for bit, and K1 at every level of the reference path, and times the one
@@ -69,7 +82,8 @@ PyTorch call that computes K2's and S1's function (cuDNN convolutions,
 TF32 off; the pyramid's: one a level). At the end, whether the pyramid's
 grids (one a level, programmatic dependent launch) can be captured into a
 CUDA graph (reported, not required). Launch counters are reset just before
-the runs of phases 4, 5, 7, 8, 9, 10 and 11 (c) and read just after each. Then one
+the runs of phases 4, 5, 7, 8, 9, 10, 11 (c), 12 (a) and 12 (d) and read
+just after each. Then one
 JSON line with the kernels (each with its least time on the card, from
 utils/profiling's byte and operation model against the published H100
 peaks, its time at the rates phase 10 sustained, its device time on
@@ -97,6 +111,7 @@ SIZE = 1080
 K1_SHAPES = [(135, 135), (270, 270), (540, 540), (1080, 1080)]  # 135^2 fast, all: reference
 K2_SHAPES = [(1080, 1080), (540, 540), (270, 270)]
 PYRAMID = ((SIZE, SIZE), 4)  # the main path's pyramid: one oft_pyramid call a frame
+TRACK_PYRAMID = ((720, 1280), 3)  # the tracking pyramid of a 720p gray frame (phase 12)
 # K2's ragged and tiny cases (not timed): (shape, levels) pyramids, one of
 # them to 1x1, and single levels
 K2_SWEEP_PYRAMIDS = [((1024, 1024), 11), ((2, 135, 271), 10), ((3, 7), 3), ((1, 1), 3)]
@@ -146,7 +161,9 @@ RUNS = {"stream": "VideoPipeline.push (phase 4)",
         "controller": "coarse_to_fine level_iters=2 (phase 5)",
         "mesh_stream": "VideoPipeline.push, 2x2 tile mesh (phase 7)",
         "mesh_controller": "sharded_coarse_to_fine level_iters=2, 2x2 tile mesh (phase 8)",
-        "reference": "reference stream (phase 9)", "probes": "probes (phase 10)"}
+        "reference": "reference stream (phase 9)", "probes": "probes (phase 10)",
+        "track": "sparse tracking, corners -> sparse LK -> RANSAC (phase 12 a)",
+        "shift_controller": "coarse_to_fine warp_impl='shift' level_iters=2 (phase 12 d)"}
 PROFILE_WARMUP, PROFILE_FRAMES = 5, 40
 REFERENCE_PROFILE_FRAMES = 20
 HOST_WARM, HOST_TIMED = 5, 30  # phase 11 (e): frames before and inside the timed window
@@ -158,6 +175,12 @@ SUSTAINED_COPY_HW = (8192, 4096)  # 512 MiB moved a call
 SUSTAINED_CHAIN = (1 << 23, 1024)  # elements, steps: 17.2 G operations a call
 SUSTAINED_SETS = 4
 FLOW_RANGES = [(0.0, 1.0)] * 2 + [(-2.0, 2.0)] * 2  # K3/K4 timing inputs: frames, then flows
+# phase 12: of.cpp:51's corner arguments; the patch of synthetic_frames moves
+# (+3, +2) px a frame; the exact shift warp's reach at clamp 8 (resolve_warp_impl)
+CORNERS = (500, 0.01, 10)
+PATCH_MOTION = (3.0, 2.0)
+SHIFT_MAX_DISP = 5
+TIMED_CALLS = 5  # phase 12 (e): calls timed after two of warm-up
 
 
 def log(msg: str) -> None:
@@ -602,6 +625,19 @@ def phase_kernels(device, iters=20):
            library_ms=use_once(pyramid_conv, (x,), [(0.0, 255.0)], levels=levels),
            library_diff=levels_err(pyramid_conv(x, levels), want))
     results["pyramid"]["by_shape"][-1].update(entry="oft_pyramid", levels=levels)
+    # the tracking pyramid (phase 12's path), kept apart from the frame's totals
+    (shape, levels) = TRACK_PYRAMID
+    x = t(rng.rand(*shape) * 255.0)
+    got, want = gaussian_pyramid_cuda(x, levels), gaussian_pyramid(x, levels, impl="poly")
+    torch.cuda.synchronize()
+    ms, pms = time_pair(lambda: gaussian_pyramid(x, levels, impl="poly"),
+                        lambda: gaussian_pyramid_cuda(x, levels), iters)
+    record("pyramid_track", shape, levels_err(got, want), ms, pms, ATOL_PYRDOWN,
+           kernel_cost("pyramid", [x], got[1:], outputs_counted=sum(g.numel() for g in got[1:])),
+           device_ms=use_once(gaussian_pyramid_cuda, (x,), [(0.0, 255.0)], levels=levels),
+           library_ms=use_once(pyramid_conv, (x,), [(0.0, 255.0)], levels=levels),
+           library_diff=levels_err(pyramid_conv(x, levels), want))
+    results["pyramid_track"]["by_shape"][-1].update(entry="oft_pyramid", levels=levels, path="track")
     # K2's ragged and tiny cases (not timed), bit for bit
     for shape, levels in K2_SWEEP_PYRAMIDS:
         x = t(rng.rand(*shape) * 255.0)
@@ -1299,6 +1335,271 @@ def phase_profile(device, config, name, graph, warmup=PROFILE_WARMUP, n=PROFILE_
     return summary
 
 
+# ------------------------------------------------------- phase 12: tracking
+
+
+def trajectory(grays):
+    """examples/trajectory.py's loop with of.cpp's arguments: corners on
+    each frame (re-seeded every frame), tracked into the next with the
+    default SparseLKConfig (each frame's tracking pyramid built once), then
+    a RANSAC homography (RansacConfig()) over the features tracked."""
+    from optical_flow_tpu_torch.track import SparseLKConfig, good_features_to_track, track_features
+    from optical_flow_tpu_torch.track.pose import RansacConfig, estimate_homography
+    from optical_flow_tpu_torch.track.sparse_lk import build_tracking_pyramid
+
+    pairs, prev = [], None
+    for g in grays:
+        pyr = build_tracking_pyramid(g)
+        if prev is not None:
+            new, status, _ = track_features(prev[0], g, pts, SparseLKConfig(), pyr1=prev[1],
+                                            pyr2=pyr)
+            ok = status & valid
+            H, inl, n = estimate_homography(pts, new, ok, RansacConfig())
+            pairs.append({k: x.cpu() for k, x in
+                          dict(pts=pts, valid=valid, new=new, status=status, ok=ok, H=H,
+                               inliers=n).items()})
+        pts, valid = good_features_to_track(g, *CORNERS)
+        prev = (g, pyr)
+    return pairs
+
+
+def compare_trajectories(card, cpu):
+    """The card's trajectory against the CPU port's, pair by pair: valid
+    corner sets (>= 99% shared), positions of the features tracked on both
+    sides (median < 1e-4 px, q99 < 0.03 px), status agreement (>= 99%) and
+    inlier counts (within 1%)."""
+    out = {"corner_set_differences": [], "status_disagreements": 0, "features_compared": 0,
+           "inliers_card": [], "inliers_cpu": []}
+    shared_total = union_total = 0
+    d_all = []
+    for k, (a, b) in enumerate(zip(card, cpu)):
+        ia = {tuple(p): i for i, p in enumerate(a["pts"].tolist()) if a["valid"][i]}
+        ib = {tuple(p): i for i, p in enumerate(b["pts"].tolist()) if b["valid"][i]}
+        shared = sorted(set(ia) & set(ib))
+        shared_total += len(shared)
+        union_total += len(set(ia) | set(ib))
+        only = sorted(set(ia) ^ set(ib))
+        if only:
+            out["corner_set_differences"].append({"pair": k, "card_only": sorted(set(ia) - set(ib)),
+                                                  "cpu_only": sorted(set(ib) - set(ia))})
+        sa = np.array([bool(a["status"][ia[p]]) for p in shared])
+        sb = np.array([bool(b["status"][ib[p]]) for p in shared])
+        out["status_disagreements"] += int((sa != sb).sum())
+        both = [p for p, x, y in zip(shared, sa, sb) if x and y]
+        na = np.array([a["new"][ia[p]].tolist() for p in both]).reshape(-1, 2)
+        nb = np.array([b["new"][ib[p]].tolist() for p in both]).reshape(-1, 2)
+        d_all.append(np.linalg.norm(na - nb, axis=1))
+        out["features_compared"] += len(shared)
+        x, y = int(a["inliers"]), int(b["inliers"])
+        out["inliers_card"].append(x)
+        out["inliers_cpu"].append(y)
+        if abs(x - y) > max(1.0, 0.01 * max(x, y)):
+            raise AssertionError(f"trajectory pair {k}: inliers {x} on the card, {y} on the CPU")
+    d = np.concatenate(d_all)
+    out["corners_shared"] = shared_total / max(union_total, 1)
+    out["status_agreement"] = 1.0 - out["status_disagreements"] / max(out["features_compared"], 1)
+    out.update(track_median_px=float(np.median(d)), track_q99_px=float(np.quantile(d, 0.99)),
+               track_max_px=float(d.max()), tracks_differing_1e4=int((d > 1e-4).sum()))
+    if out["corners_shared"] < 0.99:
+        raise AssertionError(f"corner sets share {out['corners_shared']:.4f} (bar 0.99)")
+    if out["status_agreement"] < 0.99:
+        raise AssertionError(f"status agreement {out['status_agreement']:.4f} (bar 0.99)")
+    if not (out["track_median_px"] < 1e-4 and out["track_q99_px"] < 0.03):
+        raise AssertionError(f"tracks differ: median {out['track_median_px']:.3g}, "
+                             f"q99 {out['track_q99_px']:.3g} px")
+    return out
+
+
+def patch_motion(pairs):
+    """Median displacement of the features tracked on the moving patch (a
+    half-window inside its edges), pooled over the pairs; must be the
+    patch's (+3, +2) px a frame to within 0.1 px."""
+    H, W = FRAME_HW
+    ph, pw = H // 4, W // 6
+    m = 16
+    d = []
+    for t, p in enumerate(pairs):
+        y0, x0 = H // 3 + 2 * t, W // 3 + 3 * t
+        pts, ok = p["pts"].numpy(), p["ok"].numpy()
+        on = ok & (pts[:, 0] > x0 + m) & (pts[:, 0] < x0 + pw - m) & (pts[:, 1] > y0 + m) & (
+            pts[:, 1] < y0 + ph - m)
+        d.append(p["new"].numpy()[on] - pts[on])
+    d = np.concatenate(d)
+    med = np.median(d, axis=0)
+    if len(d) < 20 or np.abs(med - np.array(PATCH_MOTION)).max() > 0.1:
+        raise AssertionError(f"patch features: {len(d)}, median motion {med} (want {PATCH_MOTION})")
+    return {"patch_features": int(len(d)), "patch_median_motion_px": med.tolist()}
+
+
+def call_profile(fn, n=TIMED_CALLS):
+    """ms per call of `fn` on the card (CUDA events over `n` calls after two
+    of warm-up, one synchronize at each end), then one call under
+    torch.profiler (CUDA activity): its device events (kernels and copies),
+    device busy ms and the idle share of its traced wall time, and the
+    launches of the port's own kernels in it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from optical_flow_tpu_torch import kernels
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    # the tracer can miss a short call's few events: traced again (up to
+    # three times), and reported as not measured (None) if it never sees one
+    for _ in range(3):
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in events]) if events else None
+    return {"ms_per_call": start.elapsed_time(end) / n, "host_ms_per_call": host_ms,
+            "device_events_per_call": len(events) if events else None,
+            "device_busy_ms": busy, "traced_wall_ms": wall,
+            "idle_share": None if busy is None else 1.0 - busy / wall,
+            "kernel_launches_per_call": {k: v for k, v in kernels.launch_counts().items() if v}}
+
+
+def phase_tracking(device, frames, size):
+    """Phase 12: the sparse-tracking path, Horn-Schunck and the exact
+    'shift' warp. Returns (summary, launch counts of the trajectory run,
+    launch counts of the 'shift' controller run)."""
+    import torch
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.config import FlowConfig
+    from optical_flow_tpu_torch.flow.coarse_to_fine import coarse_to_fine
+    from optical_flow_tpu_torch.flow.horn_schunck import HornSchunckConfig, horn_schunck
+    from optical_flow_tpu_torch.ops.pyramid import gaussian_pyramid
+    from optical_flow_tpu_torch.ops.warp import symmetric_warp
+    from optical_flow_tpu_torch.parallel import sharded_symmetric_warp
+    from optical_flow_tpu_torch.pipeline.preprocess import bgr_to_gray
+    from optical_flow_tpu_torch.track import SparseLKConfig, good_features_to_track, track_features
+    from optical_flow_tpu_torch.track.pose import RansacConfig, estimate_homography
+    from optical_flow_tpu_torch.track.sparse_lk import build_tracking_pyramid
+
+    out = {}
+    # (a) the trajectory path on phase 4's frames, on the card and on the CPU
+    grays = [bgr_to_gray(torch.from_numpy(f).to(device)) for f in frames]
+    kernels.reset_launch_counts()
+    card = trajectory(grays)
+    torch.cuda.synchronize()
+    track_counts = kernels.launch_counts()
+    check_counts("trajectory", track_counts, {"oft_pyramid": len(frames)})
+    cpu = trajectory([bgr_to_gray(torch.from_numpy(f)) for f in frames])
+    out["a"] = {"pairs": len(card), "launches": track_counts,
+                "valid_corners": [int(p["valid"].sum()) for p in card],
+                **compare_trajectories(card, cpu), **patch_motion(card)}
+    log(f"[12 a trajectory] {json.dumps(out['a'])}")
+
+    # (b) the known shift on phase 5's pair, in gray-level units
+    img1, img2 = shifted_pair(device, size)
+    g1, g2 = img1 * 255.0, img2 * 255.0
+    pts, valid = good_features_to_track(g1, *CORNERS)
+    res = {impl: track_features(g1, g2, pts, SparseLKConfig(impl=impl)) for impl in ("gather", "shift")}
+    new, status, _ = res["gather"]
+    ok = status & valid
+    med = (new - pts)[ok].median(dim=0).values.tolist()
+    H, _, n_inl = estimate_homography(pts, new, ok, RansacConfig())
+    Hn = (H / H[2, 2]).tolist()
+    both = ok & res["shift"][1]
+    d = torch.linalg.norm(res["gather"][0] - res["shift"][0], dim=1)[both]
+    out["b"] = {"tracked": int(ok.sum()), "median_motion_px": med,
+                "homography_translation_px": [Hn[0][2], Hn[1][2]], "inliers": int(n_inl),
+                "status_equal": bool(torch.equal(res["gather"][1], res["shift"][1])),
+                "shift_vs_gather_median_px": float(d.median()), "shift_vs_gather_max_px": float(d.max())}
+    for got in (med, out["b"]["homography_translation_px"]):
+        if max(abs(got[0] - SHIFT[0]), abs(got[1] - SHIFT[1])) > 0.1:
+            raise AssertionError(f"known shift: {out['b']}")
+    if not (out["b"]["shift_vs_gather_median_px"] < 1e-5 and out["b"]["shift_vs_gather_max_px"] < 1e-3):
+        raise AssertionError(f"sparse 'shift' vs 'gather': {out['b']}")
+    log(f"[12 b known shift] {json.dumps(out['b'])}")
+
+    # (c) Horn-Schunck, corrected pyramid (shift_sep warps on the card, K2 pyramids)
+    hs_cfg = HornSchunckConfig(alpha=0.5, iters=100, levels=4)
+    kernels.reset_launch_counts()
+    u, v = horn_schunck(img1, img2, hs_cfg)
+    torch.cuda.synchronize()
+    hs_counts = kernels.launch_counts()
+    check_counts("horn_schunck", hs_counts, {"oft_pyramid": 2})
+    inner = (slice(8, -8), slice(8, -8))
+    med = [float(u[inner].median()), float(v[inner].median())]
+    if not (bool(torch.isfinite(u).all()) and abs(med[0] - SHIFT[0]) < 0.2
+            and abs(med[1] - SHIFT[1]) < 0.2):
+        raise AssertionError(f"horn_schunck median flow {med} (shift {SHIFT})")
+    for img in (img1, img2):
+        for a, b in zip(gaussian_pyramid(img, 4, impl="auto"), gaussian_pyramid(img, 4, impl="poly")):
+            if not torch.equal(a, b):
+                raise AssertionError("the K2 pyramid differs from 'poly'")
+    out["c"] = {"median_flow_px": med, "launches": hs_counts,
+                "median_epe_px": float(torch.hypot(u[inner] - SHIFT[0], v[inner] - SHIFT[1]).median()),
+                "k2_pyramids_equal_poly": True}
+    log(f"[12 c horn_schunck] {json.dumps(out['c'])}")
+
+    # (d) the exact 'shift' warp: against 'gather', through the controller, on the mesh
+    rng = np.random.RandomState(SEED + 5)
+    fu, fv = (torch.from_numpy(np.clip(f, -CLAMP, CLAMP)).to(device)
+              for f in smooth_flow(rng, (size, size), 3.0))
+    ws = symmetric_warp(img1, img2, fu, fv, impl="shift", max_disp=SHIFT_MAX_DISP)
+    wg = symmetric_warp(img1, img2, fu, fv, impl="gather")
+    warp_err = max(float((a - b).abs().max()) for a, b in zip(ws, wg))
+    if warp_err > 1e-5:
+        raise AssertionError(f"'shift' vs 'gather' warp: max |d| {warp_err:.3g} (bar 1e-5)")
+    wm = sharded_symmetric_warp(img1, img2, fu, fv, grid_mesh(device), CLAMP, impl="shift")
+    if not all(torch.equal(a, b) for a, b in zip(wm, ws)):
+        raise AssertionError("the 'shift' tile warp differs from the unsharded warp")
+    cfg = FlowConfig(mode="corrected", warp_clamp=CLAMP, warp_impl="shift", level_iters=2,
+                     pyr_impl="auto")
+    kernels.reset_launch_counts()
+    cu, cv = coarse_to_fine(img1, img2, config=cfg)
+    torch.cuda.synchronize()
+    shift_counts = kernels.launch_counts()
+    check_counts("shift controller", shift_counts, {"oft_pyramid": 2, "oft_lk": 8})
+    out["d"] = {"warp_max_abs_vs_gather": warp_err, "mesh_equal": True, "launches": shift_counts,
+                "median_epe_px": median_epe("shift controller", cu, cv)}
+    log(f"[12 d shift] {json.dumps(out['d'])}")
+
+    # (e) times on the card, after the checks
+    prev_pyr, pyr = build_tracking_pyramid(grays[0]), build_tracking_pyramid(grays[1])
+    tp, tv = good_features_to_track(grays[0], *CORNERS)
+    tn, ts, _ = track_features(grays[0], grays[1], tp, pyr1=prev_pyr, pyr2=pyr)
+    calls = {
+        "good_features_to_track_720p": lambda: good_features_to_track(grays[0], *CORNERS),
+        "good_features_to_track_1080": lambda: good_features_to_track(g1, *CORNERS),
+        "build_tracking_pyramid_720p": lambda: build_tracking_pyramid(grays[0]),
+        "track_features_720p": lambda: track_features(grays[0], grays[1], tp, pyr1=prev_pyr,
+                                                      pyr2=pyr),
+        "track_features_shift_720p": lambda: track_features(
+            grays[0], grays[1], tp, SparseLKConfig(impl="shift"), pyr1=prev_pyr, pyr2=pyr),
+        "estimate_homography": lambda: estimate_homography(tp, tn, ts & tv),
+        "horn_schunck_1080": lambda: horn_schunck(img1, img2, hs_cfg),
+        "shift_warp_1080": lambda: symmetric_warp(img1, img2, fu, fv, impl="shift",
+                                                  max_disp=SHIFT_MAX_DISP),
+        "topk_1080": lambda: torch.topk(g1.reshape(-1), CORNERS[0]),
+        "max_pool_21x21_1080": lambda: torch.nn.functional.max_pool2d(
+            g1[None, None], 21, stride=1, padding=10),
+    }
+    out["e"] = {}
+    for name, fn in calls.items():
+        out["e"][name] = call_profile(fn, n=2 if name.startswith("horn") else TIMED_CALLS)
+        log(f"[12 e time] {name}: {json.dumps(out['e'][name])}")
+    return out, track_counts, shift_counts
+
+
 def pyramid_graph_capture(device):
     """Whether the pyramid's grids (programmatic dependent launch between its
     levels) can be captured into a CUDA graph and replayed on new input
@@ -1404,6 +1705,8 @@ def main() -> int:
     host = phase_host_path(device, frames, {"fast": (stream_results, sl["launches"]),
                                             "reference": (ref_results, ref["launches"])})
     log(f"[11 host path] {json.dumps(host)}")
+    trk, track_counts, shift_counts = phase_tracking(device, frames, SIZE)
+    log("[12 tracking] the sparse-tracking path, Horn-Schunck and the 'shift' warp pass")
     del stream_results, ref_results
     per_kernel["pyramid"]["graph_capture"] = pyramid_graph_capture(device)
     log(f"  pyramid graph capture: {json.dumps(per_kernel['pyramid']['graph_capture'])}")
@@ -1449,11 +1752,17 @@ def main() -> int:
     }
     runs = {"stream": sl["launches"], "controller": ctl["launches"],
             "mesh_stream": msl["launches"], "mesh_controller": mctl["launches"],
-            "reference": ref["launches"], "probes": prb["launches"]}
+            "reference": ref["launches"], "probes": prb["launches"],
+            "track": track_counts, "shift_controller": shift_counts}
     missing = [name for name, (entries, run, _, _) in meta.items()
                if any(runs[run][e] == 0 for e in entries)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")
+    # phase 12's runs: K2 builds the tracking pyramids, K1 solves each level
+    # of the 'shift' controller
+    if not (runs["track"]["oft_pyramid"] > 0 and runs["shift_controller"]["oft_lk"] > 0):
+        raise AssertionError(f"phase 12 launched no K2 / K1: {runs['track']}, "
+                             f"{runs['shift_controller']}")
 
     # the probes' own rows: the first variant's time; all variants beside it
     first = {"interleave": "cols_float2", "colsum": "smem", "mul_add_chain": "f32"}
@@ -1471,10 +1780,13 @@ def main() -> int:
     # K2 has one row, the pyramid call of the paths (one count a call, one
     # grid a level below the input). Phase 3's single levels (oft_pyrdown,
     # the same kernel as one grid, called by no path) stand in its by_shape
-    # and sweep, marked by their entry; its totals are the pyramid call's.
+    # and sweep, marked by their entry, and so does the tracking pyramid of
+    # phase 12 (path "track"); its totals are the 1080^2 pyramid call's.
     single = per_kernel.pop("pyrdown")
+    track = per_kernel.pop("pyramid_track")
     k2 = per_kernel["pyramid"]
-    k2["max_abs_err"] = max(k2["max_abs_err"], single["max_abs_err"])
+    k2["max_abs_err"] = max(k2["max_abs_err"], single["max_abs_err"], track["max_abs_err"])
+    k2["by_shape"] += track["by_shape"]
     k2["by_shape"] += [dict(b, entry="oft_pyrdown", levels=2) for b in single["by_shape"]]
     k2["sweep"] += [dict(c, entry="oft_pyrdown", levels=2) for c in single["sweep"]]
     k2["grids_per_call"] = PYRAMID[1] - 1

@@ -10,10 +10,14 @@ Layer map:
   ops/        dense tensor ops with OpenCV-faithful numerics
   kernels/    K1-K5, P1, S1 and the probes S2-S4 as CUDA kernels (csrc/), with
               their plain PyTorch versions
-  utils/      kernel timing on the card and the roofline model
-  flow/       single-level LK and the coarse-to-fine controller
+  utils/      kernel timing on the card, the roofline model, and the device an
+              entry point runs on
+  flow/       single-level LK, the coarse-to-fine controller and Horn–Schunck
   parallel/   a grid of devices, halo exchange and the mesh-sharded controller
   pipeline/   preprocess -> pyramidal flow -> gesture video pipeline
+  track/      sparse tracking: Shi–Tomasi corners, pyramidal sparse LK, RANSAC
+              homography (reference of.cpp)
+  __main__.py the command line (``python -m optical_flow_tpu_torch track``)
   convert.py  configurations, streaming state and a mesh's shape from the JAX package
 """
 
@@ -29,12 +33,14 @@ from optical_flow_tpu_torch.flow.coarse_to_fine import (
     coarse_to_fine_pyramids,
     coarse_to_fine_with_images,
 )
+from optical_flow_tpu_torch.flow.horn_schunck import HornSchunckConfig, horn_schunck
 from optical_flow_tpu_torch.ops.pyramid import (
     gaussian_pyramid,
     max_pyramid_levels,
     pyr_down,
     pyr_up,
 )
+from optical_flow_tpu_torch import track
 
 __version__ = "0.1.0"
 
@@ -47,6 +53,9 @@ __all__ = [
     "coarse_to_fine",
     "coarse_to_fine_pyramids",
     "coarse_to_fine_with_images",
+    "horn_schunck",
+    "HornSchunckConfig",
+    "track",
     "gaussian_pyramid",
     "max_pyramid_levels",
     "pyr_down",

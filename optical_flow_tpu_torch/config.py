@@ -10,9 +10,9 @@ the port's values:
   CUDA tensor, ``'torch'`` for a CPU one).
 - ``FlowConfig.pyr_impl``: ``'poly'`` (plain polyphase pyr_down),
   ``'cuda'`` (the pyr_down kernel) or ``'auto'`` (by the tensor's device).
-- ``FlowConfig.warp_impl``: ``'gather'``, ``'shift_sep'`` or ``'auto'``
-  (``'shift_sep'`` for a CUDA tensor when ``warp_clamp`` is set, else
-  ``'gather'``). ``'shift'`` is not ported yet.
+- ``FlowConfig.warp_impl``: ``'gather'``, ``'shift'``, ``'shift_sep'`` or
+  ``'auto'`` (``'shift_sep'`` for a CUDA tensor when ``warp_clamp`` is set,
+  else ``'gather'``).
 
 Nothing here switches a global backend: every choice is made per call from
 the tensor's device.
@@ -39,7 +39,7 @@ class FlowConfig:
     warp_clamp: Optional[float] = None
     # Warp-and-solve passes per level; > 1 requires mode='corrected'.
     level_iters: int = 1
-    # 'gather' | 'shift_sep' | 'auto'; 'shift_sep' requires warp_clamp.
+    # 'gather' | 'shift' | 'shift_sep' | 'auto'; the shift forms require warp_clamp.
     warp_impl: str = "auto"
     # 'poly' | 'cuda' | 'auto'.
     pyr_impl: str = "poly"

@@ -1,7 +1,8 @@
 """Carry configurations and streaming state across from the JAX package.
 
 The functions read the JAX objects by field name and import nothing of JAX,
-so they take the dataclasses of ``optical_flow_tpu.config``, the numpy
+so they take the dataclasses of ``optical_flow_tpu.config``, of
+``optical_flow_tpu.track`` and ``optical_flow_tpu.flow.horn_schunck``, the numpy
 dict of ``optical_flow_tpu.pipeline.VideoPipeline.state()`` and a
 ``jax.sharding.Mesh`` (through its ``shape``) as they are.
 The system has no learned weights; its carried state is that streaming
@@ -22,7 +23,10 @@ from optical_flow_tpu_torch.config import (
     PreprocessConfig,
     VideoConfig,
 )
+from optical_flow_tpu_torch.flow.horn_schunck import HornSchunckConfig
 from optical_flow_tpu_torch.parallel.mesh import AXIS_COLS, AXIS_FRAMES, AXIS_ROWS, FlowMesh, flow_mesh
+from optical_flow_tpu_torch.track.pose import RansacConfig
+from optical_flow_tpu_torch.track.sparse_lk import SparseLKConfig
 
 _IMPL = {"jnp": "torch", "pallas": "cuda", "auto": "auto"}
 _PYR_IMPL = {"poly": "poly", "pallas": "auto", "auto": "auto"}
@@ -86,3 +90,21 @@ def flow_mesh_from_jax(mesh, devices) -> FlowMesh:
     allowed, as in ``flow_mesh``)."""
     shape = dict(mesh.shape)
     return flow_mesh(shape[AXIS_FRAMES], shape[AXIS_ROWS], shape[AXIS_COLS], devices=devices)
+
+
+def sparse_lk_config_from_jax(cfg) -> SparseLKConfig:
+    """JAX SparseLKConfig -> port SparseLKConfig (field by field; impl
+    'auto' keeps the port's meaning, 'gather' on every device)."""
+    return SparseLKConfig(**_fields(SparseLKConfig, cfg))
+
+
+def ransac_config_from_jax(cfg) -> RansacConfig:
+    """JAX RansacConfig -> port RansacConfig (field by field; the seed
+    seeds the port's own sampler, not threefry)."""
+    return RansacConfig(**_fields(RansacConfig, cfg))
+
+
+def horn_schunck_config_from_jax(cfg) -> HornSchunckConfig:
+    """JAX HornSchunckConfig -> port HornSchunckConfig (field by field;
+    warp_impl 'auto' keeps the port's meaning, resolve_warp_impl's)."""
+    return HornSchunckConfig(**_fields(HornSchunckConfig, cfg))

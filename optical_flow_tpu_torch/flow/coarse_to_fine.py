@@ -5,8 +5,9 @@ The kernels are chosen per call from ``FlowConfig.impl`` and the device of
 the frames: with the kernel route and the clamped, quantized shift_sep
 warp, the inter-level step runs on K3 (``level_step``) and every other
 warp+solve on K4 (``warp_solve``); every LK solve outside those runs on
-K1 through ``lucas_kanade``; reference mode's inter-level upsample runs
-on S1 (``upsample``).
+K1 through ``lucas_kanade`` (with the exact ``'shift'`` or the
+``'gather'`` warp, every level's solve); reference mode's inter-level
+upsample runs on S1 (``upsample``).
 """
 
 from __future__ import annotations
@@ -24,22 +25,21 @@ from optical_flow_tpu_torch.ops.warp import symmetric_warp
 
 def resolve_warp_impl(config: FlowConfig, is_cuda: bool):
     """(impl, max_disp) for symmetric_warp. ``'auto'`` is ``'shift_sep'``
-    for CUDA frames when warp_clamp is set, else ``'gather'``."""
+    for CUDA frames when warp_clamp is set, else ``'gather'``. The shift
+    forms need warp_clamp: their reach is half the clamped flow, plus 1 for
+    the exact ``'shift'`` form's fixed-point rounding slack."""
     impl = config.warp_impl
     if impl == "auto":
         impl = "shift_sep" if (config.warp_clamp is not None and is_cuda) else "gather"
-    if impl == "shift":
-        raise NotImplementedError(
-            "warp_impl 'shift' is not ported yet (ROADMAP.md, Queue 1); use 'shift_sep'"
-        )
-    if impl == "shift_sep":
+    if impl in ("shift", "shift_sep"):
         if config.warp_clamp is None:
             raise ValueError(f"warp_impl={impl!r} requires warp_clamp (bounded reach)")
         # flow-space quantization keeps |d| <= clamp/2 exactly
-        return impl, int(-(-config.warp_clamp // 2))
+        reach = int(-(-config.warp_clamp // 2))
+        return impl, reach + (1 if impl == "shift" else 0)
     if impl != "gather":
         raise ValueError(
-            f"warp_impl must be 'gather', 'shift_sep' or 'auto', got {impl!r}"
+            f"warp_impl must be 'gather', 'shift', 'shift_sep' or 'auto', got {impl!r}"
         )
     return "gather", 0
 

@@ -2,12 +2,26 @@
 
 Interior pixels get the sum of their 3x3 neighbourhood; the 1-px border
 ring is exactly 0 (LKof.cpp:129-137). Rows are summed first, then columns,
-as in the JAX package.
+as in the JAX package. ``_box3_rows``/``_box3_cols`` are the zero-padded
+full 3x3 passes (border included) that the corner detector composes
+(track/features.py).
 """
 
 from __future__ import annotations
 
 import torch
+
+from optical_flow_tpu_torch.ops.pad import pad_last2
+
+
+def _box3_rows(x: torch.Tensor) -> torch.Tensor:
+    p = pad_last2(x, 1, 1, 0, 0, mode="constant")
+    return p[..., :-2, :] + p[..., 1:-1, :] + p[..., 2:, :]
+
+
+def _box3_cols(x: torch.Tensor) -> torch.Tensor:
+    p = pad_last2(x, 0, 0, 1, 1, mode="constant")
+    return p[..., :, :-2] + p[..., :, 1:-1] + p[..., :, 2:]
 
 
 def sum3x3_interior(x: torch.Tensor) -> torch.Tensor:

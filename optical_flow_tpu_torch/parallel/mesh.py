@@ -21,6 +21,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from optical_flow_tpu_torch.utils.device import canonical_device
+
 AXIS_FRAMES = "frames"
 AXIS_ROWS = "rows"
 AXIS_COLS = "cols"
@@ -50,22 +52,6 @@ def mesh_factorization(n: int) -> Tuple[int, int, int]:
             if score > (best[1] * best[2], -abs(best[1] - best[2])):
                 best = (frames, rows, cols)
     return best
-
-
-def canonical_device(device) -> torch.device:
-    """``torch.device(device)`` with a bare ``'cuda'`` bound to the current
-    card, so that two names of one device compare equal. A CUDA device
-    without a card raises: nothing carries on on the CPU unasked."""
-    d = torch.device(device)
-    if d.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{str(d)!r} was asked for but no CUDA device is available; "
-                "pass device='cpu' (devices=['cpu'] for a mesh) to run on the CPU"
-            )
-        if d.index is None:
-            d = torch.device("cuda", torch.cuda.current_device())
-    return d
 
 
 class FlowMesh:

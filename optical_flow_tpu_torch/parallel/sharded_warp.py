@@ -13,8 +13,11 @@ with zero fill at the frame's edges (cv2.remap's BORDER_CONSTANT 0).
 'gather' builds its maps in global coordinates and shifts the tap indices
 to the halo tile after quantization (``remap_bilinear(index_offset=)``),
 an exact integer step; 'shift_sep' is position-independent and needs only
-the neighbour rows' x-displacement for its x-pass. Both equal the
-unsharded warp bit for bit. 'shift' is not ported yet and raises.
+the neighbour rows' x-displacement for its x-pass; 'shift' pads one zero
+ring around the halo tile (the margin ``shift_warp_sum`` expects, whose
+weight is always exactly 0) and computes its displacements from global
+coordinates (``shift_disp_fields``). All three equal the unsharded warp
+bit for bit.
 """
 
 from __future__ import annotations
@@ -25,7 +28,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from optical_flow_tpu_torch.ops.warp import quantize_disp, remap_bilinear, symmetric_shift_sep_sum
+from optical_flow_tpu_torch.ops.pad import pad_last2
+from optical_flow_tpu_torch.ops.warp import (
+    quantize_disp,
+    remap_bilinear,
+    shift_disp_fields,
+    shift_warp_sum,
+    symmetric_shift_sep_sum,
+)
 from optical_flow_tpu_torch.parallel.halo import exchange_halo, exchange_halo_rows
 from optical_flow_tpu_torch.parallel.mesh import (
     AXIS_COLS,
@@ -46,14 +56,10 @@ def sharded_symmetric_warp(
     """Warp both frames half-way toward each other, tiled over the mesh.
 
     u/v must already be clamped to [-max_disp, max_disp] (the controller
-    does this); the halo covers exactly that reach. impl: 'gather' or
-    'shift_sep', each bit-identical to the unsharded warp of that form.
+    does this); the halo covers exactly that reach. impl: 'gather', 'shift'
+    or 'shift_sep', each bit-identical to the unsharded warp of that form.
     """
-    if impl == "shift":
-        raise NotImplementedError(
-            "warp impl 'shift' is not ported yet (ROADMAP.md, Queue 1); use 'shift_sep' or 'gather'"
-        )
-    if impl not in ("gather", "shift_sep"):
+    if impl not in ("gather", "shift", "shift_sep"):
         raise ValueError(f"unknown tiled warp impl {impl!r}")
     rows_n, cols_n = mesh.shape[AXIS_ROWS], mesh.shape[AXIS_COLS]
     k = int(math.ceil(max_disp / 2.0)) + (0 if impl == "shift_sep" else 1)
@@ -87,6 +93,14 @@ def sharded_symmetric_warp(
         # arithmetic); tap indices move to the halo tile after quantization
         xs = torch.arange(col0, col0 + w, dtype=torch.float32, device=dev)[None, :]
         ys = torch.arange(row0, row0 + h, dtype=torch.float32, device=dev)[:, None]
+        if impl == "shift":
+            dx, dy = shift_disp_fields(xs + hx[idx], ys + hy[idx], xs, ys, k,
+                                       quantize=quantize, dtype=e1[idx].dtype)
+            w1[idx] = shift_warp_sum(pad_last2(e1[idx], 1, 1, 1, 1, mode="constant"), dx, dy, k)
+            dx, dy = shift_disp_fields(xs - hx[idx], ys - hy[idx], xs, ys, k,
+                                       quantize=quantize, dtype=e2[idx].dtype)
+            w2[idx] = shift_warp_sum(pad_last2(e2[idx], 1, 1, 1, 1, mode="constant"), dx, dy, k)
+            continue
         off = (k - row0, k - col0)
         w1[idx] = remap_bilinear(e1[idx], xs + hx[idx], ys + hy[idx], quantize=quantize,
                                  index_offset=off)

@@ -1,1 +1,2 @@
-"""Utilities of the port: kernel timing and rooflines on the card (profiling)."""
+"""Utilities of the port: kernel timing and rooflines on the card (profiling),
+and where an entry point's inputs go (device)."""

@@ -132,7 +132,8 @@ def _flow(rng, shape, scale, dtype):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize(
     "impl,max_disp,quantize",
-    [("shift_sep", 4, True), ("shift_sep", 2, False), ("gather", 0, True), ("gather", 0, False)],
+    [("shift_sep", 4, True), ("shift_sep", 2, False), ("gather", 0, True), ("gather", 0, False),
+     ("shift", 5, True), ("shift", 3, False)],
 )
 def test_symmetric_warp(impl, max_disp, quantize, dtype):
     rng = np.random.RandomState(6)
@@ -149,7 +150,7 @@ def test_warp_integer_promotion_and_errors():
     rng = np.random.RandomState(7)
     img = (rng.rand(12, 14) * 255).astype(np.uint8)
     (ju, jv), (tu, tv) = _flow(rng, (12, 14), 2.0, np.float32)
-    for impl, md in (("shift_sep", 3), ("gather", 0)):
+    for impl, md in (("shift_sep", 3), ("gather", 0), ("shift", 4)):
         got = t_warp.symmetric_warp(torch.from_numpy(img), torch.from_numpy(img), tu, tv,
                                     impl=impl, max_disp=md)
         assert got[0].dtype == torch.float32
@@ -163,5 +164,78 @@ def test_warp_integer_promotion_and_errors():
     t = torch.from_numpy(img.astype(np.float32))
     with pytest.raises(ValueError):
         t_warp.symmetric_warp(t, t, tu, tv, impl="shift_sep", max_disp=0)
-    with pytest.raises(NotImplementedError):
-        t_warp.symmetric_warp(t, t, tu, tv, impl="shift", max_disp=3)
+    # the exact shift warp is ported; the round-5 rule stands: no reach, no warp
+    with pytest.raises(ValueError):
+        t_warp.symmetric_warp(t, t, tu, tv, impl="shift", max_disp=0)
+    with pytest.raises(ValueError):
+        t_warp.symmetric_warp(t, t, tu, tv, impl="nearest", max_disp=3)
+
+
+# ------------------------------------------------------- the exact 'shift' warp
+# float64 (JAX x64) and float32: bit for bit; both sides do the same IEEE
+# operations in the same order (the bar of the f64 oracle paths is <= 1e-9).
+
+
+def _maps(rng, shape, reach):
+    """Absolute sample coordinates identity + d, |d| up to `reach` px (some
+    beyond it, to exercise the clamp), float32 like the reference's maps."""
+    H, W = shape
+    xs = np.arange(W, dtype=np.float32)[None, :] + (rng.randn(H, W) * reach / 2).astype(np.float32)
+    ys = np.arange(H, dtype=np.float32)[:, None] + (rng.randn(H, W) * reach / 2).astype(np.float32)
+    return xs, ys
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("quantize", [True, False])
+def test_shift_disp_fields(quantize, dtype):
+    rng = np.random.RandomState(8)
+    mx, my = _maps(rng, (13, 19), 4.0)
+    # global coordinates of a tile at (40, 64): what the tiled warp passes
+    xs = np.arange(64, 64 + 19, dtype=np.float32)[None, :]
+    ys = np.arange(40, 40 + 13, dtype=np.float32)[:, None]
+    j = j_warp.shift_disp_fields(jnp.asarray(mx + 64), jnp.asarray(my + 40), jnp.asarray(xs),
+                                 jnp.asarray(ys), 3, quantize=quantize, dtype=dtype)
+    t = t_warp.shift_disp_fields(torch.from_numpy(mx + 64), torch.from_numpy(my + 40),
+                                 torch.from_numpy(xs), torch.from_numpy(ys), 3, quantize=quantize,
+                                 dtype=getattr(torch, np.dtype(dtype).name))
+    for a, b in zip(j, t):
+        _same(a, b)
+    assert float(t[0].abs().max()) <= 3.0
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("C", [1, 4])
+def test_shift_warp_sum(C, dtype):
+    rng = np.random.RandomState(9)
+    jp, tp = _pair(rng, (2, 11 + 2 * C + 2, 14 + 2 * C + 2), dtype)
+    dx = np.clip(rng.randn(11, 14) * C, -C, C).astype(dtype)
+    dy = np.clip(rng.randn(11, 14) * C, -C, C).astype(dtype)
+    _same(j_warp.shift_warp_sum(jp, jnp.asarray(dx), jnp.asarray(dy), C),
+          t_warp.shift_warp_sum(tp, torch.from_numpy(dx), torch.from_numpy(dy), C))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("separable", [False, True])
+@pytest.mark.parametrize("quantize", [True, False])
+def test_remap_bilinear_shift(quantize, separable, dtype):
+    rng = np.random.RandomState(10)
+    j, t = _pair(rng, (2, 15, 21), dtype)
+    mx, my = _maps(rng, (15, 21), 4.0)
+    kw = dict(quantize=quantize, separable=separable)
+    _same(j_warp.remap_bilinear_shift(j, jnp.asarray(mx), jnp.asarray(my), 4, **kw),
+          t_warp.remap_bilinear_shift(t, torch.from_numpy(mx), torch.from_numpy(my), 4, **kw))
+
+
+def test_shift_warp_equals_gather_within_reach():
+    """Inside its reach the exact shift warp takes the gather warp's taps
+    and weights in another sum order: within 1e-5 on unit-range images
+    (tests/test_ops.py:210-238)."""
+    rng = np.random.RandomState(11)
+    a, b = (torch.from_numpy(rng.rand(2, 24, 30).astype(np.float32)) for _ in range(2))
+    u, v = (torch.from_numpy(np.clip(rng.randn(24, 30) * 3, -8, 8).astype(np.float32))
+            for _ in range(2))
+    for q in (True, False):
+        g = t_warp.symmetric_warp(a, b, u, v, impl="gather", quantize=q)
+        s = t_warp.symmetric_warp(a, b, u, v, impl="shift", max_disp=5, quantize=q)
+        for x, y in zip(g, s):
+            assert float((x - y).abs().max()) <= 1e-5

@@ -29,7 +29,8 @@ def test_import_pulls_in_no_jax():
         "import optical_flow_tpu_torch.parallel, optical_flow_tpu_torch.kernels.probes\n"
         "import optical_flow_tpu_torch.utils.profiling, optical_flow_tpu_torch.io\n"
         "import optical_flow_tpu_torch.io.prefetch, optical_flow_tpu_torch.io.video_reader\n"
-        "import optical_flow_tpu_torch.pipeline.graphs\n"
+        "import optical_flow_tpu_torch.pipeline.graphs, optical_flow_tpu_torch.track.pose\n"
+        "import optical_flow_tpu_torch.__main__, optical_flow_tpu_torch.flow.horn_schunck\n"
         "from optical_flow_tpu_torch.pipeline.video import VideoPipeline, replay_video\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'optical_flow_tpu' or m.startswith('optical_flow_tpu.'))\n"
@@ -95,8 +96,11 @@ def test_unported_paths_refuse():
                             t_config.PreprocessConfig(size=(16, 16)))
     assert gray.dtype == torch.uint8 and tuple(gray.shape) == (16, 16)
     assert bool((gray == 7).all())  # a flat frame stays flat through resize, blur and gray
-    with pytest.raises(NotImplementedError):
-        resolve_warp_impl(t_config.FlowConfig(warp_impl="shift", warp_clamp=8.0), True)
+    # the exact shift warp is ported: half the clamp, +1 of fixed-point slack
+    assert resolve_warp_impl(t_config.FlowConfig(warp_impl="shift", warp_clamp=8.0), True) == (
+        "shift", 5)
+    with pytest.raises(ValueError):  # its reach needs a clamp
+        resolve_warp_impl(t_config.FlowConfig(warp_impl="shift"), True)
     # 'auto' follows the device: shift_sep only for CUDA frames
     cfg = t_config.FlowConfig(warp_clamp=8.0)
     assert resolve_warp_impl(cfg, False) == ("gather", 0)
@@ -115,3 +119,50 @@ def test_kernel_build_and_checks_fail_loudly(tmp_path, monkeypatch):
     assert _lib.library_path() == _lib.library_path()  # named by a content hash
     with pytest.raises(ValueError):
         _lib.check_cuda_f32("test", torch.zeros(2))  # CPU tensors never reach a kernel
+
+
+def test_exports_cover_the_jax_package():
+    import optical_flow_tpu
+    import optical_flow_tpu.flow
+    import optical_flow_tpu.track
+
+    import optical_flow_tpu_torch
+    import optical_flow_tpu_torch.flow
+    import optical_flow_tpu_torch.track
+
+    for j, t in ((optical_flow_tpu, optical_flow_tpu_torch),
+                 (optical_flow_tpu.flow, optical_flow_tpu_torch.flow),
+                 (optical_flow_tpu.track, optical_flow_tpu_torch.track)):
+        missing = sorted(set(j.__all__) - set(t.__all__))
+        assert not missing, (t.__name__, missing)
+        assert all(hasattr(t, name) for name in t.__all__)
+    assert optical_flow_tpu_torch.track.track_features is optical_flow_tpu_torch.track.sparse_lk.track_features
+
+
+def _jax_track_configs():
+    from optical_flow_tpu.flow.horn_schunck import HornSchunckConfig
+    from optical_flow_tpu.track.pose import RansacConfig
+    from optical_flow_tpu.track.sparse_lk import SparseLKConfig
+
+    return {
+        "sparse_lk": (convert.sparse_lk_config_from_jax, SparseLKConfig,
+                      dict(win=21, max_level=3, iters=10, eps=0.01, min_eig_threshold=1e-3,
+                           impl="shift", margin=4)),
+        "ransac": (convert.ransac_config_from_jax, RansacConfig,
+                   dict(n_hypotheses=64, inlier_px=1.5, seed=7)),
+        "horn_schunck": (convert.horn_schunck_config_from_jax, HornSchunckConfig,
+                         dict(alpha=0.5, iters=40, levels=None, warp_clamp=None,
+                              warp_impl="gather")),
+    }
+
+
+@pytest.mark.parametrize("which", ["sparse_lk", "ransac", "horn_schunck"])
+@pytest.mark.parametrize("default", [True, False])
+def test_track_and_hs_configs_from_jax(which, default):
+    fn, jcls, kw = _jax_track_configs()[which]
+    jcfg = jcls() if default else jcls(**kw)
+    got = fn(jcfg)
+    assert dataclasses.asdict(got) == dataclasses.asdict(jcfg)
+    assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(jcls)]
+    if default:
+        assert got == type(got)()  # the port's defaults are the JAX package's

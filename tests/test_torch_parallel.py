@@ -187,7 +187,7 @@ def test_sharded_lk_matches_jax_and_unsharded(grid):
 
 
 @pytest.mark.parametrize("grid", GRIDS)
-@pytest.mark.parametrize("impl", ["shift_sep", "gather"])
+@pytest.mark.parametrize("impl", ["shift_sep", "gather", "shift"])
 def test_sharded_warp_matches_jax_and_unsharded(grid, impl):
     dims, shape = GRIDS[grid]
     rng = np.random.RandomState(3)
@@ -198,7 +198,7 @@ def test_sharded_warp_matches_jax_and_unsharded(grid, impl):
     j1, j2 = j_par.sharded_symmetric_warp(a, b, u, v, _jmesh(dims), clamp, impl=impl)
     np.testing.assert_array_equal(w1.numpy(), _np(j1))
     np.testing.assert_array_equal(w2.numpy(), _np(j2))
-    md = 3 if impl == "shift_sep" else 0
+    md = {"shift_sep": 3, "shift": 4, "gather": 0}[impl]  # resolve_warp_impl's reach
     o1, o2 = symmetric_warp(_t(a), _t(b), _t(u), _t(v), impl=impl, max_disp=md)
     assert torch.equal(w1, o1) and torch.equal(w2, o2)
 
@@ -485,13 +485,33 @@ def test_rejects_a_mesh_off_the_pipeline_device():
 
 
 def test_rejects_shift_warp():
+    """The exact 'shift' tile warp is ported; it still refuses a reach its
+    halo cannot ship, a configuration without warp_clamp and an unknown
+    form."""
     mesh = _tmesh((1, 2, 2))
-    z = torch.zeros(64, 64)
-    with pytest.raises(NotImplementedError):
-        sharded_symmetric_warp(z, z, z, z, mesh, 8.0, impl="shift")
-    cfg = t_config.FlowConfig(mode="corrected", warp_clamp=8.0, warp_impl="shift")
-    with pytest.raises(NotImplementedError):
+    z = torch.zeros(64, 64)  # 32x32 tiles
+    with pytest.raises(ValueError):  # halo ceil(80/2)+1 = 41 > 32
+        sharded_symmetric_warp(z, z, z, z, mesh, 80.0, impl="shift")
+    with pytest.raises(ValueError):
+        sharded_symmetric_warp(z, z, z, z, mesh, 8.0, impl="nearest")
+    cfg = t_config.FlowConfig(mode="corrected", warp_impl="shift")
+    with pytest.raises(ValueError):
         sharded_coarse_to_fine(z, z, mesh, 2, config=cfg)
+
+
+@pytest.mark.parametrize("level_iters", [1, 2])
+def test_sharded_controller_shift_equals_unsharded(level_iters):
+    """The mesh controller with warp_impl='shift' on a CPU 2x2 mesh: the
+    tiled exact shift warp and the tiled LK equal the unsharded controller
+    bit for bit."""
+    rng = np.random.RandomState(7)
+    a = rng.rand(64, 128).astype(np.float32)
+    b = np.roll(a, (1, 2), (-2, -1)) + 0.05 * rng.rand(64, 128).astype(np.float32)
+    cfg = t_config.FlowConfig(mode="corrected", warp_clamp=6.0, warp_impl="shift",
+                              level_iters=level_iters)
+    u0, v0 = coarse_to_fine(_t(a), _t(b), 3, config=cfg)
+    u, v = sharded_coarse_to_fine(_t(a), _t(b), _tmesh((1, 2, 2)), 3, config=cfg, min_tile=16)
+    assert torch.equal(u, u0) and torch.equal(v, v0)
 
 
 # ------------------------------------------------------------------- P1

@@ -100,6 +100,72 @@ def test_coarse_to_fine_corrected_matches_jax(impl, level_iters):
     assert np.median(epe) < 0.2, np.median(epe)
 
 
+# The controller configurations beside the streaming slice's: (mode,
+# warp_impl, warp_clamp, quantize_warp, levels, level_iters). Both packages'
+# plain routes (JAX 'jnp', the port 'torch'), eager, on a 64x48 pair.
+CONTROLLER_CONFIGS = {
+    "shift_corrected": ("corrected", "shift", 6.0, True, None, 1),
+    "shift_level_iters2": ("corrected", "shift", 4.0, True, 3, 2),
+    "gather_corrected_unclamped": ("corrected", "gather", None, True, None, 1),
+    "gather_corrected_clamped": ("corrected", "gather", 8.0, True, None, 2),
+    "gather_unquantized": ("reference", "gather", None, False, None, 1),
+    "shift_sep_unquantized": ("corrected", "shift_sep", 8.0, False, None, 1),
+    "explicit_levels": ("reference", "gather", None, True, 3, 1),
+}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("name", CONTROLLER_CONFIGS)
+def test_controller_configurations_match_jax(name, dtype):
+    """float64 (JAX x64): within 1e-9. float32: the slice's bar (median <
+    1e-3 px, q99 < 0.02 px) on the interior. Every case read max |d| 0 in
+    both dtypes when the test was written."""
+    mode, warp_impl, clamp, quantize, levels, level_iters = CONTROLLER_CONFIGS[name]
+    rng = np.random.RandomState(12)
+    a = _smooth(rng, 48, 64, 2.0).astype(dtype)
+    b = np.roll(a, (1, 2), (0, 1)) + (0.02 * rng.rand(48, 64)).astype(dtype)
+    kw = dict(mode=mode, warp_impl=warp_impl, warp_clamp=clamp, quantize_warp=quantize,
+              levels=levels, level_iters=level_iters)
+    ju, jv = j_coarse_to_fine(jnp.asarray(a), jnp.asarray(b),
+                              config=j_config.FlowConfig(impl="jnp", **kw))
+    u, v = t_coarse_to_fine(torch.from_numpy(a), torch.from_numpy(b),
+                            config=t_config.FlowConfig(impl="torch", **kw))
+    assert u.dtype == getattr(torch, np.dtype(dtype).name)
+    if dtype == np.float64:
+        assert np.abs(np.asarray(ju) - u.numpy()).max() <= 1e-9
+        assert np.abs(np.asarray(jv) - v.numpy()).max() <= 1e-9
+    else:
+        _assert_flow_close(ju, jv, u, v)
+
+
+def test_controller_shift_solves_on_k1(monkeypatch):
+    """With warp_impl='shift' the controller warps by symmetric_warp and
+    solves with lucas_kanade at each level (K1 on the card), never through
+    the fused K3/K4 routes, which fuse only the shift_sep warp."""
+    import importlib
+
+    from optical_flow_tpu_torch.kernels import warp_lk_kernel
+
+    c2f = importlib.import_module("optical_flow_tpu_torch.flow.coarse_to_fine")
+
+    def refuse(*args, **kw):
+        raise AssertionError("a fused warp+LK route was taken")
+
+    monkeypatch.setattr(warp_lk_kernel, "warp_lk_cuda", refuse)
+    monkeypatch.setattr(warp_lk_kernel, "pyrup_warp_lk_cuda", refuse)
+    solves = []
+    lk = c2f.lucas_kanade
+    monkeypatch.setattr(c2f, "lucas_kanade", lambda a, b, **kw: solves.append(a.shape) or lk(a, b, **kw))
+    img1, img2 = _texture_pair()
+    cfg = t_config.FlowConfig(impl="cuda", mode="corrected", warp_clamp=8.0, warp_impl="shift",
+                              level_iters=2)
+    u, v = t_coarse_to_fine(_t(img1), _t(img2), 4, config=cfg)
+    assert len(solves) == 4 * 2  # every level, twice
+    inner = (slice(8, -8), slice(8, -8))
+    epe = np.hypot(u.numpy()[inner] - SHIFT[0], v.numpy()[inner] - SHIFT[1])
+    assert np.median(epe) < 0.2, np.median(epe)
+
+
 def _smooth(rng, h, w, sigma):
     fy, fx = np.fft.fftfreq(h)[:, None], np.fft.fftfreq(w)[None, :]
     g = np.exp(-2.0 * (np.pi * sigma) ** 2 * (fx * fx + fy * fy))
