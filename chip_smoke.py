@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's streaming 1080^2 flow paths (the fast preset,
 unsharded and on a 2x2 tile mesh, and the reference-parity default
-configuration), the sparse tracker, Horn-Schunck and the exact 'shift' warp
-once on an NVIDIA GPU, and run the probes S2-S4.
+configuration), the sparse tracker, Horn-Schunck, the exact 'shift' warp and
+structure from motion once on an NVIDIA GPU, and run the probes S2-S4.
 
     python3 chip_smoke.py
 
@@ -74,7 +74,24 @@ Phases, each printing one line (any failure raises and exits non-zero):
      K2 pyramids equal to 'poly'; (d) the 'shift' warp against 'gather' at
      1080^2, through the controller (K1 at every solve, no K3/K4) and on the
      2x2 mesh bit for bit; (e) ms per call and device events per call of
-     each entry point, CUDA events after warm-up, one call traced.
+     each entry point, CUDA events after warm-up, one call traced;
+ 13. structure from motion (slam/): (a) multi_view_reconstruct on 8 gray
+     720x1280 frames of a camera sliding along +x over a random depth field
+     (rendered with scipy), on the card and on the CPU: rmse falls and
+     stays under 3 px, the x translations grow with max/min step < 1.8,
+     kept track sets >= 99% shared, camera centres within 1e-3 of the
+     baseline, K2 exactly 2 x 7 launches (both tracking pyramids of every
+     link) and no other kernel; (b) two_view_reconstruct on frames 0 and 3:
+     |t_x| > 0.9, >= 90% of points in front, depth correlation > 0.7,
+     card against CPU as in (a); (c) bundle_adjust in float64 at 50
+     cameras, 10,000 points, 60,000 observations: rmse falls 10x, card
+     within 1e-8 of the CPU, whether two card runs are bit-equal (reported),
+     and the Huber solve with 5% gross outliers; (d) WindowedBA over a
+     14-keyframe trajectory with one eye and with a right eye, the poses
+     within tests/test_slam.py's bars; (e) ms per call, device events,
+     busy ms and idle share of each entry point, and of the 8-point null
+     vector's two forms (a batched SVD of the tall float32 design matrices,
+     eigh of the float64 normal matrices).
 Phase 3 also holds S1 at the three upsamples of a 1080^2 frame, and over
 a ragged sweep at odd and even coarse widths on both sides of its
 launcher's strip rule, bit for bit, and K1 at every level of the reference path, and times the one
@@ -82,8 +99,8 @@ PyTorch call that computes K2's and S1's function (cuDNN convolutions,
 TF32 off; the pyramid's: one a level). At the end, whether the pyramid's
 grids (one a level, programmatic dependent launch) can be captured into a
 CUDA graph (reported, not required). Launch counters are reset just before
-the runs of phases 4, 5, 7, 8, 9, 10, 11 (c), 12 (a) and 12 (d) and read
-just after each. Then one
+the runs of phases 4, 5, 7, 8, 9, 10, 11 (c), 12 (a), 12 (d) and 13 (a) and
+read just after each. Then one
 JSON line with the kernels (each with its least time on the card, from
 utils/profiling's byte and operation model against the published H100
 peaks, its time at the rates phase 10 sustained, its device time on
@@ -163,7 +180,8 @@ RUNS = {"stream": "VideoPipeline.push (phase 4)",
         "mesh_controller": "sharded_coarse_to_fine level_iters=2, 2x2 tile mesh (phase 8)",
         "reference": "reference stream (phase 9)", "probes": "probes (phase 10)",
         "track": "sparse tracking, corners -> sparse LK -> RANSAC (phase 12 a)",
-        "shift_controller": "coarse_to_fine warp_impl='shift' level_iters=2 (phase 12 d)"}
+        "shift_controller": "coarse_to_fine warp_impl='shift' level_iters=2 (phase 12 d)",
+        "sfm": "multi_view_reconstruct, 8 frames of 720x1280 (phase 13 a)"}
 PROFILE_WARMUP, PROFILE_FRAMES = 5, 40
 REFERENCE_PROFILE_FRAMES = 20
 HOST_WARM, HOST_TIMED = 5, 30  # phase 11 (e): frames before and inside the timed window
@@ -181,6 +199,11 @@ CORNERS = (500, 0.01, 10)
 PATCH_MOTION = (3.0, 2.0)
 SHIFT_MAX_DISP = 5
 TIMED_CALLS = 5  # phase 12 (e): calls timed after two of warm-up
+# phase 13: 8 gray 720p frames of a camera sliding +x by 0.02 a frame over a
+# depth field of [3, 12] at focal 1000 (1.7-6.7 px of parallax a frame); the
+# bundle adjustment scenes of tests/test_slam.py (focal 500)
+SFM_FRAMES, SFM_HW, SFM_FOCAL, SFM_STEP = 8, (720, 1280), 1000.0, 0.02
+BA_FOCAL = 500.0
 
 
 def log(msg: str) -> None:
@@ -1436,7 +1459,8 @@ def call_profile(fn, n=TIMED_CALLS):
     of warm-up, one synchronize at each end), then one call under
     torch.profiler (CUDA activity): its device events (kernels and copies),
     device busy ms and the idle share of its traced wall time, and the
-    launches of the port's own kernels in it."""
+    launches of the port's own kernels in it, and the four device events
+    (by name) that took the most of its busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1467,7 +1491,12 @@ def call_profile(fn, n=TIMED_CALLS):
         if events:
             break
     busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in events]) if events else None
+    by_name = {}
+    for e in events:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:4])
     return {"ms_per_call": start.elapsed_time(end) / n, "host_ms_per_call": host_ms,
+            "top_device_ms": top,
             "device_events_per_call": len(events) if events else None,
             "device_busy_ms": busy, "traced_wall_ms": wall,
             "idle_share": None if busy is None else 1.0 - busy / wall,
@@ -1600,6 +1629,293 @@ def phase_tracking(device, frames, size):
     return out, track_counts, shift_counts
 
 
+# ---------------------------------------------- phase 13: structure from motion
+
+
+def render_sfm_frames(n, hw=SFM_HW, focal=SFM_FOCAL, step=SFM_STEP, seed=SEED):
+    """n gray uint8 frames of a camera sliding along +x by `step` a frame
+    over a textured scene with a random depth field clipped to [3, 12]
+    (examples/sfm_demo.py's scene without cv2: cubic zoom for the texture
+    and the depth, bilinear REFLECT_101 resampling for the parallax).
+    Returns (frames, depth)."""
+    from scipy import ndimage
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    small = rng.rand(h // 4, w // 4)
+    base = ndimage.zoom(small, (h / small.shape[0], w / small.shape[1]), order=3)
+    base = (255 * (base - base.min()) / np.ptp(base)).astype(np.uint8)
+    d = rng.rand(10, 13)
+    depth = np.clip(4.0 + 6.0 * ndimage.zoom(d, (h / 10, w / 13), order=3), 3.0, 12.0)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    frames = [base]
+    for k in range(1, n):
+        img = ndimage.map_coordinates(base.astype(np.float64), [ys, xs + focal * step * k / depth],
+                                      order=1, mode="mirror")
+        frames.append(np.clip(np.rint(img), 0, 255).astype(np.uint8))
+    return frames, depth
+
+
+def camera_centres(cams):
+    """(N, 3) centres -R^T t of (N, 6) axis-angle + translation cameras."""
+    import torch
+
+    from optical_flow_tpu_torch.slam.ba import _rodrigues
+
+    c = torch.from_numpy(np.asarray(cams, np.float64))
+    return np.stack([-(_rodrigues(x[:3]).T @ x[3:]).numpy() for x in c])
+
+
+def shared_share(a, b):
+    """|A & B| / |A | B| of two sets of pixel positions (rows)."""
+    sa, sb = {tuple(p) for p in np.asarray(a).tolist()}, {tuple(p) for p in np.asarray(b).tolist()}
+    return len(sa & sb) / max(len(sa | sb), 1)
+
+
+def ba_scene(outliers=0.0, seed=11, C=50, P=10_000):
+    """tests/test_slam.py:116-150 on the CPU in float64: 50 cameras along x,
+    10,000 points, each seen by 6 consecutive cameras (60,000 observations);
+    `outliers` of the observations moved by 30-60 px (tests/test_slam.py:
+    256-293). Returns (problem, true cameras)."""
+    import torch
+
+    from optical_flow_tpu_torch.slam.ba import BAProblem, project
+
+    rng = np.random.RandomState(seed)
+    pts = rng.randn(P, 3) * np.array([4.0, 4.0, 1.0]) + np.array([0, 0, 10.0])
+    cams = np.zeros((C, 6))
+    cams[:, 3] = np.linspace(-3, 3, C)
+    cams[:, :3] = rng.randn(C, 3) * 0.01
+    first = rng.randint(0, C - 5, size=P)
+    ci = (first[:, None] + np.arange(6)[None, :]).reshape(-1).astype(np.int32)
+    pi = np.repeat(np.arange(P), 6).astype(np.int32)
+    obs = torch.func.vmap(project, in_dims=(0, 0, None))(
+        torch.from_numpy(cams)[ci], torch.from_numpy(pts)[pi],
+        torch.tensor(BA_FOCAL, dtype=torch.float64))
+    prob = BAProblem(torch.from_numpy(cams + rng.randn(C, 6) * 0.002),
+                     torch.from_numpy(pts + rng.randn(P, 3) * 0.02),
+                     torch.from_numpy(ci), torch.from_numpy(pi), obs, BA_FOCAL)
+    if outliers:
+        bad = torch.from_numpy(rng.rand(len(ci)) < outliers)
+        n = int(bad.sum())
+        jump = rng.uniform(30, 60, (n, 2)) * np.sign(rng.randn(n, 2))
+        prob = prob._replace(obs=obs.index_put((bad,), obs[bad] + torch.from_numpy(jump)))
+    return prob, cams
+
+
+def windowed_trajectory(device, stereo=False):
+    """tests/test_slam.py:153-219: 14 keyframes 0.4 apart along x, 12 new
+    points a keyframe each seen by the next 4, noisy initial poses;
+    WindowedBA(window=4) solved after every keyframe; with `stereo` each
+    observation also made by a right eye 0.3 along +x. Returns (wba, live
+    observation counts, rmses, true poses)."""
+    from optical_flow_tpu_torch.slam.window import WindowedBA
+
+    def proj(pose, X, b=0.0):
+        r = pose[:3]
+        th = np.linalg.norm(r)
+        K = np.array([[0.0, -r[2], r[1]], [r[2], 0.0, -r[0]], [-r[1], r[0], 0.0]]) / max(th, 1e-12)
+        R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K) if th > 1e-6 else np.eye(3)
+        xc = R @ X + pose[3:]
+        return BA_FOCAL * np.array([xc[0] - b, xc[1]]) / xc[2]
+
+    rng = np.random.RandomState(5)
+    n_kf = 14
+    true_poses = np.zeros((n_kf, 6))
+    true_poses[:, 3] = np.arange(n_kf) * 0.4
+    pts_true, visible, pid = {}, {}, 0
+    for k in range(n_kf):
+        for _ in range(12):
+            pts_true[pid] = np.array([true_poses[k, 3] + rng.uniform(-2, 2), rng.uniform(-2, 2),
+                                      rng.uniform(6, 10)])
+            for kk in range(k, min(k + 4, n_kf)):
+                visible.setdefault(kk, []).append(pid)
+            pid += 1
+    wba = WindowedBA(window=4, focal=BA_FOCAL, ba_iters=4, lam=1e-6, device=device)
+    sizes, rmses = [], []
+    for k in range(n_kf):
+        pose_init = true_poses[k] + rng.randn(6) * np.array([0.002] * 3 + [0.02] * 3)
+        if k == 0:
+            pose_init = true_poses[0]
+        obs, new_pts = [], {}
+        for p in visible[k]:
+            uv = proj(true_poses[k], pts_true[p])
+            if abs(uv[0]) > 800 or abs(uv[1]) > 800:
+                continue
+            obs.append((p, uv))
+            if stereo:
+                obs.append((p, proj(true_poses[k], pts_true[p], 0.3), 0.3))
+            if p not in wba.points and p not in wba.retired:
+                new_pts[p] = pts_true[p] + rng.randn(3) * 0.02
+        wba.add_keyframe(pose_init, obs, new_pts)
+        rmses.append(wba.optimize())
+        sizes.append(wba.live_observation_count)
+    return wba, sizes, rmses, true_poses
+
+
+def rel_diff(a, b):
+    """max |a - b| / max |b| of two tensors or arrays (any devices)."""
+    a, b = (np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64) for x in (a, b))
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def phase_sfm(device):
+    """Phase 13: structure from motion. Returns (summary, launch counts of
+    (a)'s card run)."""
+    import torch
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.slam import (
+        BAProblem,
+        bundle_adjust,
+        estimate_essential,
+        normalize_pixels,
+        pnp_ransac,
+        ransac_essential_5pt,
+        recover_pose,
+        refine_pose,
+        reprojection_rmse,
+        two_view_reconstruct,
+    )
+    from optical_flow_tpu_torch.slam.frontend import multi_view_reconstruct
+
+    out = {}
+    frames, depth = render_sfm_frames(SFM_FRAMES)
+    card_frames = [torch.from_numpy(f).to(device) for f in frames]
+
+    # (a) multi_view_reconstruct, on the card and on the CPU
+    kernels.reset_launch_counts()
+    card = multi_view_reconstruct(card_frames, SFM_FOCAL)
+    torch.cuda.synchronize()
+    sfm_counts = kernels.launch_counts()
+    check_counts("multi_view_reconstruct", sfm_counts, {"oft_pyramid": 2 * (SFM_FRAMES - 1)})
+    cpu = multi_view_reconstruct(frames, SFM_FOCAL, device="cpu")
+    if card is None or cpu is None:
+        raise AssertionError(f"multi_view_reconstruct gave no model (card {card}, cpu {cpu})")
+    res = {"launches": sfm_counts}
+    for name, rec in (("card", card), ("cpu", cpu)):
+        txs = rec.cams[:, 3] * np.sign(rec.cams[-1, 3])
+        steps = np.diff(txs)
+        res[name] = {"points": int(rec.points.shape[0]), "rmse_before": rec.rmse_before,
+                     "rmse_after": rec.rmse_after, "x_translations": txs.tolist(),
+                     "step_ratio": float(steps.max() / max(steps.min(), 1e-12))}
+        if not (rec.rmse_after <= rec.rmse_before and rec.rmse_after < 3.0 and np.all(steps > 0)
+                and res[name]["step_ratio"] < 1.8):
+            raise AssertionError(f"multi_view_reconstruct ({name}): {res[name]}")
+    centres = [camera_centres(r.cams) for r in (card, cpu)]
+    baseline = float(np.linalg.norm(centres[1][-1]))
+    res["tracks_shared"] = shared_share(card.tracks[0], cpu.tracks[0])
+    res["centre_max_diff_over_baseline"] = float(np.abs(centres[0] - centres[1]).max() / baseline)
+    if res["tracks_shared"] < 0.99 or res["centre_max_diff_over_baseline"] > 1e-3:
+        raise AssertionError(f"multi_view_reconstruct card vs CPU: {res}")
+    out["a"] = res
+    log(f"[13 a multi_view_reconstruct] {json.dumps(res)}")
+
+    # (b) two_view_reconstruct on frames 0 and 3: the camera moves +x, so
+    # t = X_2 - R X_1 points along -x
+    two = {"card": two_view_reconstruct(card_frames[0], card_frames[3], SFM_FOCAL),
+           "cpu": two_view_reconstruct(frames[0], frames[3], SFM_FOCAL, device="cpu")}
+    res = {}
+    h, w = SFM_HW
+    for name, rec in two.items():
+        if rec is None:
+            raise AssertionError(f"two_view_reconstruct ({name}) gave no model")
+        gx = np.clip(rec.pts1[:, 0].astype(int), 0, w - 1)
+        gy = np.clip(rec.pts1[:, 1].astype(int), 0, h - 1)
+        res[name] = {"points": int(rec.points.shape[0]), "t": rec.t.tolist(),
+                     "in_front": float((rec.points[:, 2] > 0).mean()),
+                     "depth_rho": float(np.corrcoef(depth[gy, gx], rec.points[:, 2])[0, 1]),
+                     "rmse_before": rec.rmse_before, "rmse_after": rec.rmse_after}
+        if not (abs(rec.t[0]) > 0.9 and res[name]["in_front"] >= 0.9 and res[name]["depth_rho"] > 0.7
+                and rec.rmse_after <= rec.rmse_before):
+            raise AssertionError(f"two_view_reconstruct ({name}): {res[name]}")
+    res["tracks_shared"] = shared_share(two["card"].pts1, two["cpu"].pts1)
+    cc = [-(r.R.astype(np.float64).T @ r.t.astype(np.float64)) for r in two.values()]
+    res["centre_max_diff_over_baseline"] = float(np.abs(cc[0] - cc[1]).max())  # |t| = 1
+    if res["tracks_shared"] < 0.99 or res["centre_max_diff_over_baseline"] > 1e-3:
+        raise AssertionError(f"two_view_reconstruct card vs CPU: {res}")
+    out["b"] = res
+    log(f"[13 b two_view_reconstruct] {json.dumps(res)}")
+
+    # (c) bundle_adjust at scale, float64, on the card (twice) and the CPU
+    prob, _ = ba_scene()
+    runs = [bundle_adjust(prob, iters=5, lam=1e-4, device=device)[0] for _ in range(2)]
+    ref, _ = bundle_adjust(prob, iters=5, lam=1e-4)
+    rmse0, rmse1 = float(reprojection_rmse(prob)), float(reprojection_rmse(runs[0]))
+    res = {"observations": int(prob.obs.shape[0]), "rmse_before": rmse0, "rmse_after": rmse1,
+           "rmse_after_cpu": float(reprojection_rmse(ref)),
+           "cams_rel_diff_vs_cpu": rel_diff(runs[0].cams, ref.cams),
+           "points_rel_diff_vs_cpu": rel_diff(runs[0].points, ref.points),
+           "card_runs_bit_equal": bool(torch.equal(runs[0].cams, runs[1].cams)
+                                       and torch.equal(runs[0].points, runs[1].points)),
+           "card_runs_rel_diff": max(rel_diff(runs[0].cams, runs[1].cams),
+                                     rel_diff(runs[0].points, runs[1].points))}
+    if not (rmse1 < 0.1 * rmse0 and res["cams_rel_diff_vs_cpu"] <= 1e-8
+            and res["points_rel_diff_vs_cpu"] <= 1e-8):
+        raise AssertionError(f"bundle_adjust at scale: {res}")
+    bad, true_cams = ba_scene(outliers=0.05)
+    err = {}
+    for name, kw in (("plain", {}), ("robust", dict(robust_delta=2.0))):
+        sol, _ = bundle_adjust(bad, iters=5, lam=1e-4, device=device, **kw)
+        err[name] = float(np.abs(sol.cams[:, 3:].cpu().numpy() - true_cams[:, 3:]).max())
+    res["outliers_cam_err"] = err
+    if not (err["robust"] < 0.1 * err["plain"] and err["robust"] < 0.15):
+        raise AssertionError(f"robust bundle_adjust with 5% outliers: {err}")
+    out["c"] = res
+    log(f"[13 c bundle_adjust] {json.dumps(res)}")
+
+    # (d) WindowedBA on the card: the trajectory's bars (tests/test_slam.py),
+    # with one eye (the scale a gauge of the first window, held by the
+    # damping alone) and with a right eye 0.3 along +x (the scale observed)
+    res = {}
+    for name, stereo in (("monocular", False), ("stereo", True)):
+        wba, sizes, rmses, true_poses = windowed_trajectory(device, stereo)
+        x = np.array([wba.poses[k][3] for k in range(len(true_poses))])
+        xt = true_poses[:, 3]
+        res[name] = {"retired": len(wba.retired), "live_observations": sizes,
+                     "max_x_err": float(np.abs(x - xt).max()), "scale": float(x @ xt / (x @ x)),
+                     "rmse_last": rmses[-1]}
+        if not (len(wba.retired) > 50 and max(sizes) <= 12 * 4 * 7 * (1 + stereo)
+                and sizes[-1] <= max(sizes[:-1]) and all(np.isfinite(rmses))
+                and res[name]["max_x_err"] < 0.02 * xt[-1]):
+            raise AssertionError(f"WindowedBA ({name}): {res[name]}")
+    out["d"] = res
+    log(f"[13 d WindowedBA] {json.dumps(res)}")
+
+    # (e) times on the card, after the checks: (a)'s kept tracks between
+    # frames 0 and N-1, its points against frame 3
+    n0 = normalize_pixels(torch.from_numpy(card.tracks[0]).to(device), SFM_FOCAL, w / 2.0, h / 2.0)
+    nN = normalize_pixels(torch.from_numpy(card.tracks[-1]).to(device), SFM_FOCAL, w / 2.0, h / 2.0)
+    n3 = normalize_pixels(torch.from_numpy(card.tracks[3]).to(device), SFM_FOCAL, w / 2.0, h / 2.0)
+    E, inl, _ = estimate_essential(n0, nN)
+    R, t, _ = recover_pose(E, n0, nN, inl)
+    X = torch.from_numpy(card.points).to(device=device, dtype=torch.float32)
+    prob_card = BAProblem(*(x.to(device) if isinstance(x, torch.Tensor) else x for x in prob))
+    design = torch.randn((512, n0.shape[0], 9), generator=torch.Generator().manual_seed(SEED)).to(device)
+    calls = {
+        "estimate_essential": lambda: estimate_essential(n0, nN),
+        "ransac_essential_5pt": lambda: ransac_essential_5pt(n0, nN),
+        "recover_pose": lambda: recover_pose(E, n0, nN, inl),
+        "refine_pose": lambda: refine_pose(R, t, n0, nN, inl),
+        "pnp_ransac": lambda: pnp_ransac(X, n3),
+        "bundle_adjust_60k": lambda: bundle_adjust(prob_card, iters=5, lam=1e-4),
+        "windowed_ba_optimize": wba.optimize,
+        "two_view_reconstruct_720p": lambda: two_view_reconstruct(card_frames[0], card_frames[3],
+                                                                  SFM_FOCAL),
+        "multi_view_reconstruct_720p_8": lambda: multi_view_reconstruct(card_frames, SFM_FOCAL),
+        # the 8-point null vector two ways, at estimate_essential's batch:
+        # the SVD of the tall float32 design matrices (JAX's way) and eigh of
+        # the float64 normal matrices (the port's)
+        "svd_512x294x9_f32": lambda: torch.linalg.svd(design, full_matrices=False),
+        "eigh_normal_512x9x9_f64": lambda: torch.linalg.eigh(design.double().mT @ design.double()),
+    }
+    out["e"] = {"points": int(n0.shape[0])}
+    for name, fn in calls.items():
+        out["e"][name] = call_profile(fn)
+        log(f"[13 e time] {name}: {json.dumps(out['e'][name])}")
+    return out, sfm_counts
+
+
 def pyramid_graph_capture(device):
     """Whether the pyramid's grids (programmatic dependent launch between its
     levels) can be captured into a CUDA graph and replayed on new input
@@ -1707,6 +2023,9 @@ def main() -> int:
     log(f"[11 host path] {json.dumps(host)}")
     trk, track_counts, shift_counts = phase_tracking(device, frames, SIZE)
     log("[12 tracking] the sparse-tracking path, Horn-Schunck and the 'shift' warp pass")
+    t13 = time.perf_counter()
+    sfm, sfm_counts = phase_sfm(device)
+    log(f"[13 sfm] structure from motion passes ({time.perf_counter() - t13:.1f} s)")
     del stream_results, ref_results
     per_kernel["pyramid"]["graph_capture"] = pyramid_graph_capture(device)
     log(f"  pyramid graph capture: {json.dumps(per_kernel['pyramid']['graph_capture'])}")
@@ -1753,7 +2072,7 @@ def main() -> int:
     runs = {"stream": sl["launches"], "controller": ctl["launches"],
             "mesh_stream": msl["launches"], "mesh_controller": mctl["launches"],
             "reference": ref["launches"], "probes": prb["launches"],
-            "track": track_counts, "shift_controller": shift_counts}
+            "track": track_counts, "shift_controller": shift_counts, "sfm": sfm_counts}
     missing = [name for name, (entries, run, _, _) in meta.items()
                if any(runs[run][e] == 0 for e in entries)]
     if missing:
@@ -1763,6 +2082,9 @@ def main() -> int:
     if not (runs["track"]["oft_pyramid"] > 0 and runs["shift_controller"]["oft_lk"] > 0):
         raise AssertionError(f"phase 12 launched no K2 / K1: {runs['track']}, "
                              f"{runs['shift_controller']}")
+    # phase 13's run: K2 builds both tracking pyramids of every link
+    if runs["sfm"]["oft_pyramid"] != 2 * (SFM_FRAMES - 1):
+        raise AssertionError(f"phase 13 launched K2 {runs['sfm']['oft_pyramid']} times")
 
     # the probes' own rows: the first variant's time; all variants beside it
     first = {"interleave": "cols_float2", "colsum": "smem", "mul_add_chain": "f32"}

@@ -17,6 +17,9 @@ Layer map:
   pipeline/   preprocess -> pyramidal flow -> gesture video pipeline
   track/      sparse tracking: Shi–Tomasi corners, pyramidal sparse LK, RANSAC
               homography (reference of.cpp)
+  slam/       structure from motion: essential matrix, PnP, bundle
+              adjustment, the windowed mapper, two- and multi-view
+              reconstruction (the rest of the JAX package's slam/ follows)
   __main__.py the command line (``python -m optical_flow_tpu_torch track``)
   convert.py  configurations, streaming state and a mesh's shape from the JAX package
 """

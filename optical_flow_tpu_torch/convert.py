@@ -2,9 +2,12 @@
 
 The functions read the JAX objects by field name and import nothing of JAX,
 so they take the dataclasses of ``optical_flow_tpu.config``, of
-``optical_flow_tpu.track`` and ``optical_flow_tpu.flow.horn_schunck``, the numpy
-dict of ``optical_flow_tpu.pipeline.VideoPipeline.state()`` and a
-``jax.sharding.Mesh`` (through its ``shape``) as they are.
+``optical_flow_tpu.track``, ``optical_flow_tpu.flow.horn_schunck`` and
+``optical_flow_tpu.slam.epipolar``, the numpy dict of
+``optical_flow_tpu.pipeline.VideoPipeline.state()``, a
+``jax.sharding.Mesh`` (through its ``shape``) and a
+``optical_flow_tpu.slam.BAProblem`` (its arrays read through numpy) as they
+are.
 The system has no learned weights; its carried state is that streaming
 state, and the operator matrices are rebuilt by the same numpy code.
 """
@@ -25,6 +28,8 @@ from optical_flow_tpu_torch.config import (
 )
 from optical_flow_tpu_torch.flow.horn_schunck import HornSchunckConfig
 from optical_flow_tpu_torch.parallel.mesh import AXIS_COLS, AXIS_FRAMES, AXIS_ROWS, FlowMesh, flow_mesh
+from optical_flow_tpu_torch.slam.ba import BAProblem
+from optical_flow_tpu_torch.slam.epipolar import EssentialRansacConfig
 from optical_flow_tpu_torch.track.pose import RansacConfig
 from optical_flow_tpu_torch.track.sparse_lk import SparseLKConfig
 
@@ -108,3 +113,25 @@ def horn_schunck_config_from_jax(cfg) -> HornSchunckConfig:
     """JAX HornSchunckConfig -> port HornSchunckConfig (field by field;
     warp_impl 'auto' keeps the port's meaning, resolve_warp_impl's)."""
     return HornSchunckConfig(**_fields(HornSchunckConfig, cfg))
+
+
+def essential_ransac_config_from_jax(cfg) -> EssentialRansacConfig:
+    """JAX EssentialRansacConfig -> port EssentialRansacConfig (field by
+    field; the seed seeds the port's own 8-point sampler, and the 5-point
+    solver's RandomState as in JAX)."""
+    return EssentialRansacConfig(**_fields(EssentialRansacConfig, cfg))
+
+
+def ba_problem_from_jax(problem) -> BAProblem:
+    """A JAX BAProblem -> the port's, each array a CPU tensor of its own
+    dtype (``weight`` and ``baseline`` carried when present). A data
+    conversion only: ``bundle_adjust`` keeps the tensors on the CPU, or
+    ``device=`` moves them."""
+
+    def t(x):
+        return None if x is None else torch.from_numpy(np.array(x))
+
+    return BAProblem(
+        t(problem.cams), t(problem.points), t(problem.cam_idx), t(problem.pt_idx),
+        t(problem.obs), float(problem.focal), t(problem.weight), t(problem.baseline),
+    )

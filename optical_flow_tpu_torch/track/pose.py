@@ -93,14 +93,16 @@ def _transfer_error(H, p1, p2):
     return torch.sqrt(torch.sum((proj - p2) ** 2, dim=-1))
 
 
-def sample_hypotheses(valid: torch.Tensor, n_hypotheses: int, seed: int) -> torch.Tensor:
-    """(n_hypotheses, 4) indices of valid points: the top 4 of uniform
+def sample_hypotheses(valid: torch.Tensor, n_hypotheses: int, seed: int, k: int = 4) -> torch.Tensor:
+    """(n_hypotheses, k) indices of valid points: the top k of uniform
     scores masked to -inf where not valid, drawn on the CPU from ``seed``
-    (the same sets on every device), returned on ``valid``'s device."""
+    (the same sets on every device), returned on ``valid``'s device. k is
+    the minimal set: 4 for a homography, 8 for the essential matrix, 6 for
+    PnP."""
     gen = torch.Generator(device="cpu").manual_seed(int(seed))
     scores = torch.rand((n_hypotheses, valid.shape[0]), generator=gen)
     scores = torch.where(valid.cpu()[None, :], scores, torch.tensor(-float("inf")))
-    return torch.topk(scores, 4, dim=-1).indices.to(valid.device)
+    return torch.topk(scores, k, dim=-1).indices.to(valid.device)
 
 
 def _ransac_homography(p1, p2, valid, inlier_px: float, idx):

@@ -44,3 +44,9 @@ def as_tensor(x, device: torch.device, dtype=None) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.tensor(np.asarray(x))
     return x.to(device=device, dtype=dtype or x.dtype)
+
+
+def host_array(x) -> np.ndarray:
+    """``x`` (a tensor on any device, or anything numpy takes) as a numpy
+    array on the host."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

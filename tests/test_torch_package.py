@@ -32,6 +32,8 @@ def test_import_pulls_in_no_jax():
         "import optical_flow_tpu_torch.pipeline.graphs, optical_flow_tpu_torch.track.pose\n"
         "import optical_flow_tpu_torch.__main__, optical_flow_tpu_torch.flow.horn_schunck\n"
         "from optical_flow_tpu_torch.pipeline.video import VideoPipeline, replay_video\n"
+        "import optical_flow_tpu_torch.slam, optical_flow_tpu_torch.slam.frontend\n"
+        "import optical_flow_tpu_torch.slam.window, optical_flow_tpu_torch.slam.pnp\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'optical_flow_tpu' or m.startswith('optical_flow_tpu.'))\n"
         "assert not bad, bad\n"
@@ -137,6 +139,15 @@ def test_exports_cover_the_jax_package():
         assert not missing, (t.__name__, missing)
         assert all(hasattr(t, name) for name in t.__all__)
     assert optical_flow_tpu_torch.track.track_features is optical_flow_tpu_torch.track.sparse_lk.track_features
+    # slam/ is ported in slices: what the port exports, it exports under
+    # JAX's names, and the modules of the first slice are all there
+    import optical_flow_tpu.slam
+    import optical_flow_tpu_torch.slam
+
+    assert set(optical_flow_tpu_torch.slam.__all__) <= set(optical_flow_tpu.slam.__all__)
+    assert all(hasattr(optical_flow_tpu_torch.slam, name) for name in optical_flow_tpu_torch.slam.__all__)
+    for module in ("epipolar", "pnp", "ba", "window", "frontend"):
+        assert (PKG / "slam" / f"{module}.py").exists()
 
 
 def _jax_track_configs():

@@ -270,6 +270,35 @@ def test_entry_points_default_to_the_card(monkeypatch):
         prefetch_chunks_to_device(iter(frames), chunk_size=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         replay_video("pipe:128x72:no-such-file", t_config.VideoConfig.fast(size=(SIZE, SIZE)))
+    # the structure-from-motion entry points: host arrays need a card
+    from optical_flow_tpu_torch import slam
+
+    pts = np.random.RandomState(0).rand(12, 2).astype(np.float32)
+    X = np.random.RandomState(1).rand(12, 3).astype(np.float32) + 2.0
+    P = np.eye(3, 4, dtype=np.float32)
+    prob = slam.BAProblem(np.zeros((2, 6)), X.astype(np.float64), np.zeros(12, np.int32),
+                          np.arange(12, dtype=np.int32), pts.astype(np.float64))
+    gray = np.zeros((24, 32), np.uint8)
+    calls = [
+        lambda **kw: slam.estimate_essential(pts, pts, **kw),
+        lambda **kw: slam.ransac_essential_5pt(pts, pts, n_samples=4, **kw),
+        lambda **kw: slam.recover_pose(np.eye(3, dtype=np.float32), pts, pts, **kw),
+        lambda **kw: slam.refine_pose(np.eye(3), np.ones(3), pts, pts, iters=1, **kw),
+        lambda **kw: slam.triangulate(P, P, pts, pts, **kw),
+        lambda **kw: slam.normalize_pixels(pts, 100.0, 1.0, 1.0, **kw),
+        lambda **kw: slam.pnp_dlt(X, pts, **kw),
+        lambda **kw: slam.pnp_ransac(X, pts, n_hypotheses=4, **kw),
+        lambda **kw: slam.bundle_adjust(prob, iters=1, **kw),
+        lambda **kw: slam.reprojection_rmse(prob, **kw),
+        lambda **kw: slam.WindowedBA(**kw),
+        lambda **kw: slam.two_view_reconstruct(gray, gray, 100.0, **kw),
+        lambda **kw: slam.frontend.multi_view_reconstruct([gray] * 3, 100.0, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        call(device="cpu")  # runs (the flat frames find no corners: None)
+    assert slam.WindowedBA(device="cpu").device == torch.device("cpu")
     assert len(list(prefetch_to_device(iter(frames), device="cpu"))) == 3
     assert [c.shape[0] for c in prefetch_chunks_to_device(iter(frames), 2, device="cpu")] == [2, 1]
     mesh = flow_mesh(1, 2, 2, devices=["cpu"] * 4)
