@@ -9,8 +9,12 @@ structure from motion once on an NVIDIA GPU, and run the probes S2-S4.
 Phases, each printing one line (any failure raises and exits non-zero):
   1. device: the card's name and its nvidia-smi name/power-limit line;
   2. build: compile the CUDA kernels from optical_flow_tpu_torch/kernels/csrc,
-     and print what the compiler allotted K1-K5, S1 and P1 (registers,
-     spills);
+     and print what the compiler allotted K1-K5, S1, P1, S2 and S4
+     (registers, spills); compile csrc/probes.cu to PTX and fail unless
+     S4's kernels multiply and add with mul.rn and add.rn (packed bf16x2
+     in the bfloat16 ones), with no fma and, in bfloat16, no conversion;
+     print the FFMA, HFMA2 and other arithmetic of S4's kernels in the
+     built SASS (cuobjdump -sass);
   3. each kernel against its plain PyTorch version at the shapes of the main
      path, float32, with its tolerance, timed with CUDA events in turns
      (plain, kernel, kernel, plain) after warm-up, and by its device time
@@ -53,8 +57,13 @@ Phases, each printing one line (any failure raises and exits non-zero):
      launches (utils/profiling.time_use_once), each against its plain
      version bit for bit, with the copy and elementwise rates they measure
      at their own shapes, and the plain version and library call of each
-     variant where they differ (S2's rows, S4 in bfloat16); then the copy rate (S2) and float32 elementwise
-     rate (S4) that the card sustains at sizes that fill it many times over;
+     variant where they differ (S2's rows, S4 in bfloat16);
+     S2 and S4 bit for bit over ragged, tiny and unaligned planes, odd
+     lengths, 0-64 steps and bfloat16 subnormals, ties, signed zeros and
+     exponent gaps; the launch floor (P1 and clone, phase 3) printed beside
+     S2 and S4; then the copy rate (S2) and the float32 and bfloat16
+     elementwise rates (S4) that the card sustains at sizes that fill it
+     many times over;
  11. the host path on phase 4's frames, for both configurations: push with
      graph=False equal to phases 4 and 9 (graphs on) bit for bit with the
      same launch counts, run(prefetch=2) equal to run(prefetch=0) bit for
@@ -192,6 +201,13 @@ USE_ONCE_SETS = 30  # timed calls of a kernel on fresh inputs (device time)
 SUSTAINED_COPY_HW = (8192, 4096)  # 512 MiB moved a call
 SUSTAINED_CHAIN = (1 << 23, 1024)  # elements, steps: 17.2 G operations a call
 SUSTAINED_SETS = 4
+SASS_OPS = ("FFMA", "HFMA2", "FMUL", "FADD", "HMUL2", "HADD2", "F2FP")  # counted in S4's kernels
+# phase 10's bit-for-bit sweeps of S2 and S4: plane heights and widths (each
+# also as a view 4 bytes past a 16-byte boundary), chain lengths (odd) and
+# step counts, and the random pairs of probes.bf16_sweep_patterns
+S2_SWEEP_H, S2_SWEEP_W = (1, 2, 1080), (1, 3, 537, 540)
+S4_SWEEP_N, S4_SWEEP_STEPS = (1, 3, 7, 9, 1001, 524_287), (0, 1, 3, 64)
+S4_SPECIAL_N = 100_000
 FLOW_RANGES = [(0.0, 1.0)] * 2 + [(-2.0, 2.0)] * 2  # K3/K4 timing inputs: frames, then flows
 # phase 12: of.cpp:51's corner arguments; the patch of synthetic_frames moves
 # (+3, +2) px a frame; the exact shift warp's reach at clamp 8 (resolve_warp_impl)
@@ -996,7 +1012,10 @@ def phase_probes(device, n=100):
     (device time of back-to-back launches, utils/profiling.time_use_once),
     its plain version and, where one exists, the library call. The counts
     of the timed kernel calls are read right after them; the comparisons
-    with the plain versions come after."""
+    with the plain versions come after, then S2's and S4's bit-for-bit sweeps
+    (ragged and tiny planes, an unaligned view, odd lengths, several step
+    counts, bfloat16 subnormals, ties, signed zeros and exponent gaps), then
+    the rates the card sustains."""
     import torch
     import torch.nn.functional as F
 
@@ -1097,6 +1116,7 @@ def phase_probes(device, n=100):
     bad = {k: e for k, e in errs.items() if e != 0.0}
     if bad:
         raise AssertionError(f"probes differ from their plain versions: {bad}")
+    sweep = probe_sweeps(device, rng)
 
     a, b = s2[0]
     (x,) = s3[0]
@@ -1120,28 +1140,113 @@ def phase_probes(device, n=100):
     # beyond the L2 (after the counts: these launches are no probe run's)
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
 
-    def fresh(shape, lo, hi):
-        return torch.empty(shape, device=device).uniform_(lo, hi, generator=gen)
+    def fresh(shape, lo, hi, dtype=torch.float32):
+        return torch.empty(shape, device=device).uniform_(lo, hi, generator=gen).to(dtype)
 
     big = [(fresh(SUSTAINED_COPY_HW, 0.0, 1.0), fresh(SUSTAINED_COPY_HW, 0.0, 1.0))
            for _ in range(SUSTAINED_SETS + 1)]
     copy_ms = time_use_once(lambda a, b: P.interleave_cols_cuda(a, b, store="float2"), big, device)
     del big
     n_s, steps_s = SUSTAINED_CHAIN
-    chains = [(fresh((n_s,), 0.5, 1.5), fresh((n_s,), 0.0, 1e-3)) for _ in range(SUSTAINED_SETS + 1)]
-    chain_ms = time_use_once(lambda a, b: P.mul_add_chain_cuda(a, b, steps_s), chains, device)
-    del chains
+    chain_ms = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        chains = [(fresh((n_s,), 0.5, 1.5, dt), fresh((n_s,), 0.0, 1e-3, dt))
+                  for _ in range(SUSTAINED_SETS + 1)]
+        chain_ms[name] = time_use_once(lambda a, b: P.mul_add_chain_cuda(a, b, steps_s), chains,
+                                       device)
+        del chains
     sustained = {"copy_shape": list(SUSTAINED_COPY_HW), "copy_ms": copy_ms,
                  "copy_bytes_per_s": 4 * 4 * int(np.prod(SUSTAINED_COPY_HW)) / (copy_ms * 1e-3),
-                 "chain": [n_s, steps_s], "chain_ms": chain_ms,
-                 "f32_ops_per_s": 2 * steps_s * n_s / (chain_ms * 1e-3)}
+                 "chain": [n_s, steps_s], "chain_ms": chain_ms["f32"],
+                 "f32_ops_per_s": 2 * steps_s * n_s / (chain_ms["f32"] * 1e-3),
+                 "bf16_chain_ms": chain_ms["bf16"],
+                 "bf16_ops_per_s": 2 * steps_s * n_s / (chain_ms["bf16"] * 1e-3)}
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "launches": counts,
             "plain_ms_by_variant": plain_ms_by_variant,
             "library_ms_by_variant": library_ms_by_variant,
             "max_abs_err": {f"{k}/{v}": e for (k, v), e in errs.items()},
-            "conv1d_max_abs_diff": conv_err, "rates_at_probe_shapes": rates, "sustained": sustained,
+            "conv1d_max_abs_diff": conv_err, "sweep": sweep,
+            "rates_at_probe_shapes": rates, "sustained": sustained,
             "cost": {k: {"bytes": c.bytes, "ops": c.ops} for k, c in cost.items()},
             "bf16_chain_roofline": bf16}
+
+
+def probe_sweeps(device, rng):
+    """S2 and S4 held bit for bit (their bit patterns compared with
+    torch.equal) over ragged, tiny and unaligned inputs, both paths of each
+    kernel; raises on any difference. Returns the cases run by path."""
+    import torch
+
+    from optical_flow_tpu_torch.kernels import probes as P
+
+    def same(got, want):
+        ints = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+        return got.dtype == want.dtype and torch.equal(got.view(ints), want.view(ints))
+
+    def flat(count, offset, make):
+        """`count` elements on the card; `offset`: a view 4 bytes past a
+        16-byte boundary (kernels/probes.py quad_path says scalar)."""
+        x = make(count + 1)
+        x = x[1:] if offset else x[:count].clone()
+        assert (x.data_ptr() % 16 != 0) == offset
+        return x
+
+    bad, paths = [], {"quad": 0, "scalar": 0}
+    s2 = {"rows": (P.interleave_rows_cuda, P.interleave_rows_plain),
+          "cols_float2": (lambda a, b: P.interleave_cols_cuda(a, b, store="float2"),
+                          P.interleave_cols_plain),
+          "cols_smem": (lambda a, b: P.interleave_cols_cuda(a, b, store="smem"),
+                        P.interleave_cols_plain)}
+    for H in S2_SWEEP_H:
+        for W in S2_SWEEP_W:
+            for offset in (False, True):
+                def plane():
+                    return flat(H * W, offset, lambda k: torch.from_numpy(
+                        rng.randn(k).astype(np.float32)).to(device)).view(H, W)
+                a, b = plane(), plane()
+                for v, (kernel, plain) in s2.items():
+                    quad = P.quad_path(a, b, row_floats=W if v == "rows" else None)
+                    paths["quad" if quad else "scalar"] += 1
+                    if not same(kernel(a, b), plain(a, b)):
+                        bad.append(("interleave", v, H, W, offset))
+    for dt in (torch.float32, torch.bfloat16):
+        for count in S4_SWEEP_N:
+            for offset in (False, True):
+                a = flat(count, offset, lambda k: (torch.from_numpy(rng.rand(k).astype(np.float32))
+                                                   + 0.5).to(device, dt))
+                b = flat(count, offset, lambda k: (torch.from_numpy(rng.rand(k).astype(np.float32))
+                                                   * 1e-3).to(device, dt))
+                for steps in S4_SWEEP_STEPS:
+                    paths["quad" if P.quad_path(a, b) else "scalar"] += 1
+                    if not same(P.mul_add_chain_cuda(a, b, steps), P.mul_add_chain_plain(a, b, steps)):
+                        bad.append(("mul_add_chain", str(dt), count, offset, steps))
+    # bfloat16 special values, and float32 random finite bit patterns
+    ab, bb = P.bf16_sweep_patterns(rng, S4_SPECIAL_N)
+    u32 = rng.randint(0, 1 << 32, size=(2, S4_SPECIAL_N), dtype=np.uint64).astype(np.uint32)
+    u32[(u32 >> 23 & 0xFF) == 0xFF] &= 0xBFFFFFFF  # finite: no all-ones exponent
+    special = {
+        "bf16": tuple(torch.from_numpy(x.view(np.int16)).view(torch.bfloat16).to(device)
+                      for x in (ab, bb)),
+        "f32": tuple(torch.from_numpy(x.view(np.int32)).view(torch.float32).to(device)
+                     for x in u32),
+    }
+    special_cases = 0
+    for name, (a, b) in special.items():
+        for offset in (False, True):
+            x, y = (a[1:], b[1:]) if offset else (a, b)
+            for steps in S4_SWEEP_STEPS:
+                special_cases += x.numel()
+                paths["quad" if P.quad_path(x, y) else "scalar"] += 1
+                got, want = P.mul_add_chain_cuda(x, y, steps), P.mul_add_chain_plain(x, y, steps)
+                if not same(got, want):
+                    ints = torch.int16 if name == "bf16" else torch.int32
+                    diff = (got.view(ints) != want.view(ints)).nonzero().flatten()[:4].tolist()
+                    bad.append(("mul_add_chain special", name, offset, steps, "at", diff))
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError(f"S2/S4 differ from their plain versions: {bad[:8]} ({len(bad)} cases)")
+    log(f"  S2/S4 sweeps bit for bit: {paths} calls, {special_cases} special chain elements")
+    return {"paths": paths, "special_elements": special_cases}
 
 
 def cycled(frames, n):
@@ -1947,6 +2052,83 @@ def pyramid_graph_capture(device):
         return {"captured": False, "error": f"{type(e).__name__}: {e}"[:300]}
 
 
+def ptx_ops(source, kernel):
+    """{mangled kernel name: {floating-point PTX op: count}} for the kernels
+    of csrc/`source` whose name contains `kernel`, compiled to PTX with the
+    library's flags (the PTX is what -fmad and the .rn intrinsics decide;
+    ptxas then only schedules it)."""
+    import pathlib
+
+    from optical_flow_tpu_torch.kernels import _lib
+
+    flags = [f for f in _lib.NVCC_FLAGS if f != "-gencode" and not f.startswith("arch=")]
+    out = _lib.BUILD_DIR / f"{pathlib.Path(source).stem}.ptx"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_lib._nvcc(), "-arch=compute_90a", *flags, "-ptx", "-o", str(out),
+                    str(_lib.CSRC / source)], capture_output=True, text=True, check=True,
+                   timeout=300)
+    counts, name = {}, None
+    for line in out.read_text().splitlines():
+        m = re.search(r"\.entry\s+([\w$]+)", line)
+        if m:
+            name = m[1] if kernel in m[1] else None
+            if name:
+                counts[name] = {}
+        elif name:
+            for op in re.findall(r"(?<![\w.])((?:fma|mul|add|sub|neg|cvt)\.[\w.]+)", line):
+                if "f32" in op or "bf16" in op:
+                    counts[name][op] = counts[name].get(op, 0) + 1
+    return counts
+
+
+def chain_ptx_faults(ops):
+    """S4's kernels whose PTX would not round each multiply and add apart:
+    {name: (fused or converting ops, required ops missing)}. Every kernel
+    needs mul.rn and add.rn of its lanes' type (bf16x2 on the bfloat16
+    16-byte path, bf16 on its scalar path, f32), and none may hold an fma;
+    the bfloat16 ones no conversion either."""
+    faults = {}
+    for name, found in ops.items():
+        m = re.search(r"mul_add_chain_kernelI(f|13__nv_bfloat16)Lb([01])E", name)
+        lane = "f32" if m[1] == "f" else "bf16x2" if m[2] == "1" else "bf16"
+        wrong = sorted(op for op in found
+                       if op.startswith("fma.") or (lane != "f32" and op.startswith("cvt.")))
+        missing = sorted({f"mul.rn.{lane}", f"add.rn.{lane}"} - set(found))
+        if wrong or missing:
+            faults[name] = (wrong, missing)
+    return faults
+
+
+def sass_counts(lib_path, kernel, ops=SASS_OPS):
+    """{mangled kernel name: {op: instructions}} over the SASS
+    (`cuobjdump -sass`) of the built library's kernels whose name contains
+    `kernel`, and {name: up to two lines of each FFMA/HFMA2 form}."""
+    import pathlib
+
+    from optical_flow_tpu_torch.kernels import _lib
+
+    cuobjdump = pathlib.Path(_lib._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, forms, name = {}, {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m[1] if kernel in m[1] else None
+            if name:
+                counts[name], forms[name] = dict.fromkeys(ops, 0), {}
+            continue
+        if name is None:
+            continue
+        for op in ops:
+            if re.search(rf"\b{op}[ .]", line):
+                counts[name][op] += 1
+        f = re.search(r"\b(?:FFMA|HFMA2)\S*", line)
+        if f and len(forms[name].setdefault(f[0], [])) < 2:
+            forms[name][f[0]].append(re.sub(r"\s+", " ", line.split(";")[0].split("*/")[-1]).strip())
+    return counts, forms
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1987,9 +2169,22 @@ def main() -> int:
         m = re.search(r"pyrup_strip_kernelILi(\d+)ELb(\d)E", line)
         log(f"  ptxas pyrup_strip_kernel<rows={m[1]}, quad={m[2]}>: {line.split(': ', 1)[1]}"
             if m else f"  ptxas {line}")
-    for kernel in ("pyrdown_kernel", "tile_copy"):
+    for kernel in ("pyrdown_kernel", "tile_copy", "interleave", "mul_add_chain"):
         for line in _lib.ptxas_info(kernel):
             log(f"  ptxas {line}")
+    # S4 must round every multiply and add apart, as its PTX says; the SASS
+    # is printed beside it (ptxas issues part of the packed bf16 multiplies
+    # and adds as HFMA2.MMA with a zero addend or a multiplier of one)
+    ptx = ptx_ops("probes.cu", "mul_add_chain")
+    sass, forms = sass_counts(path, "mul_add_chain")
+    for name, c in ptx.items():
+        log(f"  ptx {name}: {json.dumps(c)}")
+    for name, c in sass.items():
+        log(f"  sass {name}: {json.dumps(c)} {json.dumps(forms[name])}")
+    faults = chain_ptx_faults(ptx)
+    if len(ptx) != 8 or faults:
+        raise AssertionError(f"S4's PTX: {len(ptx)} kernels of 8, faults (fused or converting "
+                             f"ops, ops missing): {faults}")
 
     per_kernel = phase_kernels(device)
     log("[3 kernels] all kernels agree with their plain versions")
@@ -2018,6 +2213,12 @@ def main() -> int:
         log(f"[9 reference profile, {mode}] {json.dumps(prof)}")
     prb = phase_probes(device)
     log(f"[10 probes] {json.dumps(prb)}")
+    floor = {"tile_copy": per_kernel["tile_copy"]["device_ms"],
+             "clone": per_kernel["tile_copy"]["library_ms"]}
+    for name in ("interleave", "mul_add_chain"):
+        for v, t in prb["ms"][name].items():
+            log(f"  {name} {v}: {t * 1e3:.2f} us; launch floor: P1 {floor['tile_copy'] * 1e3:.2f} us, clone "
+                f"{floor['clone'] * 1e3:.2f} us")
     host = phase_host_path(device, frames, {"fast": (stream_results, sl["launches"]),
                                             "reference": (ref_results, ref["launches"])})
     log(f"[11 host path] {json.dumps(host)}")
@@ -2099,6 +2300,8 @@ def main() -> int:
         for key in ("plain_ms_by_variant", "library_ms_by_variant"):
             if name in prb[key]:
                 per_kernel[name][key] = prb[key][name]
+        if name in ("interleave", "mul_add_chain"):
+            per_kernel[name]["launch_floor_ms"] = floor
     # K2 has one row, the pyramid call of the paths (one count a call, one
     # grid a level below the input). Phase 3's single levels (oft_pyrdown,
     # the same kernel as one grid, called by no path) stand in its by_shape
@@ -2130,7 +2333,7 @@ def main() -> int:
                "share_of_sustained": roof.get("share_of_sustained")}
         for key in ("max_abs_err_unmasked", "device_ms_runs", "library_ms_runs", "sweep",
                     "graph_capture", "grids_per_call", "plain_ms_by_variant",
-                    "library_ms_by_variant"):
+                    "library_ms_by_variant", "launch_floor_ms"):
             if key in r:
                 row[key] = r[key]
         if len(entries) > 1:

@@ -4,9 +4,9 @@ No flow path calls them: they measure, on the card, what the flow kernels
 are made of (``chip_smoke.py`` phase 10).
 
   S2  interleave_rows_cuda, interleave_cols_cuda  the 2x interleave store of
-      pyrUp's output (scripts/tpu_interleave_poc.py); columns as float2
-      stores from registers (store='float2') or through shared memory
-      (store='smem')
+      pyrUp's output (scripts/tpu_interleave_poc.py); columns with the
+      (a, b) pairs formed in registers (store='float2') or through a tile in
+      shared memory (store='smem'), both stored 16 bytes at a time
   S3  colsum_cuda  the 12-tap weighted column sum of K3/K4's stencil reads
       (scripts/tpu_roll_micro.py, the slice variant's output); taps read from
       a shared-memory row (reads='smem') or by warp shuffles (reads='shuffle')
@@ -14,7 +14,10 @@ are made of (``chip_smoke.py`` phase 10).
       acc = acc * b + a, float32 or bfloat16 (scripts/tpu_vpu_rate_probe.py)
 
 Every kernel equals its plain version bit for bit. A CUDA tensor launches
-the kernel or raises; a CPU tensor runs the plain version.
+the kernel or raises; a CPU tensor runs the plain version. S2 and S4 take
+their 16-byte path where ``quad_path`` says so, and otherwise the same
+kernels one element a lane. S2's kernels index with 32 bits: on the card a
+plane holds fewer than 2^31 elements.
 """
 
 from __future__ import annotations
@@ -25,10 +28,10 @@ import torch
 from optical_flow_tpu_torch.kernels import _lib
 
 __all__ = [
-    "S2_SHAPES", "S3_SHAPE", "S3_TAPS", "S3_WIN", "S4_SHAPE", "S4_STEPS",
-    "colsum_cuda", "colsum_plain", "interleave_cols_cuda", "interleave_cols_plain",
-    "interleave_rows_cuda", "interleave_rows_plain", "mul_add_chain_cuda",
-    "mul_add_chain_plain",
+    "BF16_NAMED_PAIRS", "S2_SHAPES", "S3_SHAPE", "S3_TAPS", "S3_WIN", "S4_SHAPE", "S4_STEPS",
+    "bf16_sweep_patterns", "colsum_cuda", "colsum_plain", "interleave_cols_cuda",
+    "interleave_cols_plain", "interleave_rows_cuda", "interleave_rows_plain",
+    "mul_add_chain_cuda", "mul_add_chain_plain", "quad_path",
 ]
 
 S2_SHAPES = ((256, 256), (1080, 540))  # the probe's planes and the timed (1080, 540) -> 1080^2
@@ -40,6 +43,23 @@ def _check_planes(name, a, b):
     if a.ndim != 2 or a.shape != b.shape:
         raise ValueError(f"{name}: two (H, W) planes of one shape, got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
+
+
+def _check_cuda_planes(name, a, b):
+    _lib.check_cuda_f32(name, a, b)
+    if a.numel() >= 2**31:
+        raise ValueError(f"{name}: the kernels index planes of fewer than 2^31 elements, got "
+                         f"{tuple(a.shape)}")
+
+
+def quad_path(*tensors: torch.Tensor, row_floats=None) -> bool:
+    """Whether S2 or S4 takes its 16-byte path on these tensors: every one
+    starts on a 16-byte boundary and, for S2's rows (``row_floats``, the
+    width), so does every row (W % 4 == 0). Otherwise the kernel runs one
+    element a lane; a ragged length is the 16-byte path's tail."""
+    if row_floats is not None and row_floats % 4:
+        return False
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 # ------------------------------------------------------------------ S2
@@ -59,12 +79,12 @@ def interleave_rows_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_planes("interleave_rows_cuda", a, b)
     if not a.is_cuda:
         return interleave_rows_plain(a, b)
-    _lib.check_cuda_f32("interleave_rows_cuda", a, b)
+    _check_cuda_planes("interleave_rows_cuda", a, b)
     H, W = a.shape
     out = torch.empty(2 * H, W, dtype=a.dtype, device=a.device)
     if a.numel():
         _lib.launch("oft_interleave_rows", a.device, a.data_ptr(), b.data_ptr(),
-                    out.data_ptr(), H, W)
+                    out.data_ptr(), H, W, int(quad_path(a, b, out, row_floats=W)))
     return out
 
 
@@ -77,12 +97,12 @@ def interleave_cols_cuda(a: torch.Tensor, b: torch.Tensor, *, store: str = "floa
         raise ValueError(f"store must be one of {sorted(_COL_STORES)}, got {store!r}")
     if not a.is_cuda:
         return interleave_cols_plain(a, b)
-    _lib.check_cuda_f32("interleave_cols_cuda", a, b)
+    _check_cuda_planes("interleave_cols_cuda", a, b)
     H, W = a.shape
     out = torch.empty(H, 2 * W, dtype=a.dtype, device=a.device)
     if a.numel():
         _lib.launch(_COL_STORES[store], a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                    H, W)
+                    H, W, int(quad_path(a, b, out)))
     return out
 
 
@@ -129,6 +149,44 @@ def mul_add_chain_plain(a: torch.Tensor, b: torch.Tensor, steps: int = S4_STEPS)
     return acc
 
 
+# the last pairs of bf16_sweep_patterns: ties (1.0625^2, 1 + 2^-8,
+# 0x3F81 + 2^-8), subnormal ties (2^-67 x 2^-67 = 2^-134, 1.5 x 2^-66 x
+# 2^-67), signed zeros and a negative underflow, a gap of 30 binades, the
+# least subnormals
+BF16_NAMED_PAIRS = np.array(
+    [[0x3F88, 0x3F88], [0x3F80, 0x3B80], [0x3F81, 0x3B80], [0x1E00, 0x1E00], [0x1EC0, 0x1E00],
+     [0x8000, 0x40A0], [0x8000, 0x0000], [0x8000, 0x8000], [0x97C0, 0x17C0], [0x4480, 0x3580],
+     [0x0001, 0x0001], [0x0001, 0x8001]], np.uint16)
+
+
+def bf16_sweep_patterns(rng, k: int):
+    """Pairs (a, b) of bfloat16 bit patterns (uint16 arrays) for holding
+    S4's bfloat16 chain bit for bit: k random finite patterns over every
+    exponent, then about k/8 pairs of each kind: subnormal inputs, both
+    subnormal, results in the subnormal range, sums that are exact ties,
+    products of (1 + 2^-i)(1 + 2^-j) over every exponent (ties, subnormal
+    ties), exponent gaps of 8-30 binades; then the 12 pairs of
+    ``BF16_NAMED_PAIRS``. ``rng`` is a numpy RandomState."""
+    def bits(exp, man):
+        return ((rng.randint(0, 2, exp.size) << 15) | (exp << 7) | man).astype(np.uint16)
+
+    def some(lo, hi, n=k // 8):
+        return rng.randint(lo, hi, n)
+
+    n = k // 8
+    a = [bits(some(0, 255, k), some(0, 128, k)), bits(np.zeros(n, int), some(0, 128)),
+         bits(np.zeros(n, int), some(0, 128)),
+         bits(some(1, 30), some(0, 128)), bits(some(1, 240), np.zeros(n, int)),
+         bits(some(0, 200), 1 << some(0, 7)), bits(some(40, 200), some(0, 128))]
+    b = [bits(some(0, 255, k), some(0, 128, k)), bits(some(100, 140), some(0, 128)),
+         bits(np.zeros(n, int), some(0, 128)),
+         bits(some(100, 127), some(0, 128)), bits(np.full(n, 135), some(0, 128)),
+         bits(some(0, 130), 1 << some(0, 7)),
+         bits(127 + rng.choice([-1, 1], n) * some(8, 31), some(0, 128))]
+    return (np.concatenate(a + [BF16_NAMED_PAIRS[:, 0]]),
+            np.concatenate(b + [BF16_NAMED_PAIRS[:, 1]]))
+
+
 _CHAINS = {torch.float32: "oft_mul_add_chain_f32", torch.bfloat16: "oft_mul_add_chain_bf16"}
 
 
@@ -144,5 +202,6 @@ def mul_add_chain_cuda(a: torch.Tensor, b: torch.Tensor, steps: int = S4_STEPS) 
     out = torch.empty_like(a)
     if a.numel():
         _lib.launch(_CHAINS[a.dtype], a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                    a.numel(), steps)
+                    a.numel(), steps, int(quad_path(a, b, out)))
     return out
+

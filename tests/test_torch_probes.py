@@ -27,6 +27,32 @@ def _bf16(x):
     return u.astype(np.uint32).view(np.float32)
 
 
+def _bf16_round_once(x):
+    """float64 -> bfloat16 bit patterns (uint16), the value rounded once to
+    the nearest bfloat16, ties to even, with subnormals, signed zeros and
+    overflow to infinity; integer arithmetic on the float64 bits. Exact for
+    any product of two bfloat16 values and, past an innocuous double
+    rounding (53 >= 2 x 8 + 2), for any sum; no float64 subnormal arises."""
+    u = np.ascontiguousarray(x, np.float64).view(np.uint64)
+    sign = u >> np.uint64(63)
+    e = ((u >> np.uint64(52)) & np.uint64(0x7FF)).astype(np.int64)
+    m = (u & np.uint64((1 << 52) - 1)) | np.uint64(1 << 52)
+    E = e - 1023
+    Eq = np.maximum(E, -126)  # the exponent of the result's quantum, 2^(Eq - 7)
+    shift = np.minimum(45 + Eq - E, 63).astype(np.uint64)  # bits of m below the quantum
+    q = m >> shift
+    rem = m & ((np.uint64(1) << shift) - np.uint64(1))
+    half = np.uint64(1) << (shift - np.uint64(1))
+    q = q + ((rem > half) | ((rem == half) & (q & np.uint64(1) == 1))).astype(np.uint64)
+    bits = np.minimum(((Eq + 127) << 7) + q.astype(np.int64) - 128, 0x7F80)
+    bits = np.where(e == 0, 0, bits)
+    return ((sign << np.uint64(15)) | bits.astype(np.uint64)).astype(np.uint16)
+
+
+def _as_bf16(bits):
+    return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+
+
 def _s4_numpy(a, b, steps, bf16):
     rnd = _bf16 if bf16 else (lambda x: x)
     acc = a
@@ -113,6 +139,56 @@ def test_mul_add_chain_rejects_other_types():
         probes.mul_add_chain_cuda(torch.zeros(4), torch.zeros(4, dtype=torch.bfloat16))
 
 
+@pytest.mark.parametrize("op", ["mul", "add"])
+def test_bf16_mul_add_round_once(op):
+    """Torch's bfloat16 multiply and add (float32, then rounded to
+    bfloat16) equal the exact result rounded once to bfloat16: what S4's
+    packed bf16x2 chain (mul.rn.bf16x2, add.rn.bf16x2) computes, so the
+    kernel can equal the plain version bit for bit."""
+    a, b = probes.bf16_sweep_patterns(np.random.RandomState(4), 100_000)
+    fa, fb = (np.float64((x.astype(np.uint32) << 16).view(np.float32)) for x in (a, b))
+    got = (_as_bf16(a) * _as_bf16(b)) if op == "mul" else (_as_bf16(a) + _as_bf16(b))
+    want = _bf16_round_once(fa * fb if op == "mul" else fa + fb)
+    np.testing.assert_array_equal(got.view(torch.int16).numpy().view(np.uint16), want)
+    # the named ties and zeros land where round-to-nearest-even puts them
+    named = {"mul": {(0x3F88, 0x3F88): 0x3F90, (0x1E00, 0x1E00): 0x0000, (0x1EC0, 0x1E00): 0x0002,
+                     (0x8000, 0x40A0): 0x8000, (0x97C0, 0x17C0): 0x8000},
+             "add": {(0x3F80, 0x3B80): 0x3F80, (0x3F81, 0x3B80): 0x3F82, (0x8000, 0x0000): 0x0000,
+                     (0x8000, 0x8000): 0x8000, (0x4480, 0x3580): 0x4480,
+                     (0x0001, 0x8001): 0x0000}}[op]
+    pairs = dict(zip(zip(a[-12:].tolist(), b[-12:].tolist()), want[-12:].tolist()))
+    assert {k: pairs[k] for k in named} == named
+
+
+def test_quad_path_choice():
+    """S2 and S4 take their 16-byte path where every tensor starts on a
+    16-byte boundary and, for S2's rows, every row does (W % 4 == 0); a
+    ragged length runs as the 16-byte path's tail."""
+    buf = torch.zeros(1080 * 540 + 1)
+    a, off = buf[:-1].view(1080, 540), buf[1:].view(1080, 540)
+    assert off.data_ptr() % 16 == 4
+    assert probes.quad_path(a, a, row_floats=540) and probes.quad_path(a, a)
+    ragged = torch.zeros(1080, 537)
+    assert not probes.quad_path(ragged, ragged, row_floats=537)  # rows: scalar
+    assert probes.quad_path(ragged, ragged)  # columns: the flat interleave, with a tail
+    assert not probes.quad_path(off, a, row_floats=540) and not probes.quad_path(a, off)
+    for dtype in (torch.float32, torch.bfloat16):
+        odd = torch.zeros(524_288, dtype=dtype)
+        assert probes.quad_path(odd[:-1], odd[:-1])  # odd n
+        assert not probes.quad_path(odd[1:], odd[1:])  # 4 or 2 bytes past the boundary
+
+
+def test_interleave_large_cpu_planes_run_plain(monkeypatch):
+    """S2's kernels index with 32 bits, so the card takes planes of fewer
+    than 2^31 elements; a CPU plane of any size runs the plain version."""
+    big = torch.zeros(1, 1).expand(2**16, 2**15)  # 2^31 elements, no memory behind them
+    monkeypatch.setattr(probes, "interleave_rows_plain", lambda a, b: "rows, plain")
+    monkeypatch.setattr(probes, "interleave_cols_plain", lambda a, b: "columns, plain")
+    assert probes.interleave_rows_cuda(big, big) == "rows, plain"
+    for store in ("float2", "smem"):
+        assert probes.interleave_cols_cuda(big, big, store=store) == "columns, plain"
+
+
 def test_cpu_probes_launch_nothing():
     before = kernels.launch_counts()
     x = torch.rand(8, 32)
@@ -197,6 +273,11 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _same_bits(got, want):
+    ints = torch.int16 if want.dtype == torch.bfloat16 else torch.int32
+    return got.dtype == want.dtype and torch.equal(got.view(ints), want.view(ints))
+
+
 def _counted(name, fn):
     before = kernels.launch_counts()[name]
     out = fn()
@@ -227,8 +308,39 @@ def test_probes_on_card_equal_plain(cuda_device):
     for dtype, entry in ((torch.float32, "oft_mul_add_chain_f32"),
                          (torch.bfloat16, "oft_mul_add_chain_bf16")):
         a, b = on(*probes.S4_SHAPE, dtype=dtype) + 0.5, on(*probes.S4_SHAPE, scale=1e-3, dtype=dtype)
-        assert torch.equal(_counted(entry, lambda: probes.mul_add_chain_cuda(a, b)),
-                           probes.mul_add_chain_plain(a, b))
+        want = probes.mul_add_chain_plain(a, b)
+        assert _same_bits(_counted(entry, lambda: probes.mul_add_chain_cuda(a, b)), want)
+
+    # S2 over ragged, tiny and unaligned planes (data_ptr % 16 == 4), both paths
+    def plane(H, W, offset):
+        return on(H * W + 1)[offset : offset + H * W].view(H, W)
+
+    for H in (1, 2, 1080):
+        for W in (1, 3, 537, 540):
+            for offset in (0, 1):
+                a, b = plane(H, W, offset), plane(H, W, offset)
+                want_r, want_c = probes.interleave_rows_plain(a, b), probes.interleave_cols_plain(a, b)
+                assert _same_bits(probes.interleave_rows_cuda(a, b), want_r), (H, W, offset)
+                for store in ("float2", "smem"):
+                    got = probes.interleave_cols_cuda(a, b, store=store)
+                    assert _same_bits(got, want_c), (store, H, W, offset)
+    # S4 at odd n, several step counts, unaligned; bfloat16 subnormals, ties,
+    # signed zeros, negatives and exponent gaps
+    ab, bb = probes.bf16_sweep_patterns(np.random.RandomState(5), 20_000)
+    special = (_as_bf16(ab).to(cuda_device), _as_bf16(bb).to(cuda_device))
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (1, 3, 9, 1001):
+            for offset in (0, 1):
+                a = (on(n + 1, dtype=dtype) + 0.5)[offset : offset + n]
+                b = on(n + 1, scale=1e-3, dtype=dtype)[offset : offset + n]
+                for steps in (0, 1, 3, 64):
+                    assert _same_bits(probes.mul_add_chain_cuda(a, b, steps),
+                                      probes.mul_add_chain_plain(a, b, steps)), (dtype, n, offset, steps)
+    for offset in (0, 1):
+        a, b = (x[offset:] for x in special)
+        for steps in (0, 1, 3, 64):
+            assert _same_bits(probes.mul_add_chain_cuda(a, b, steps),
+                              probes.mul_add_chain_plain(a, b, steps)), (offset, steps)
 
 
 @pytest.mark.cuda
