@@ -9,10 +9,11 @@ structure from motion once on an NVIDIA GPU, and run the probes S2-S4.
 Phases, each printing one line (any failure raises and exits non-zero):
   1. device: the card's name and its nvidia-smi name/power-limit line;
   2. build: compile the CUDA kernels from optical_flow_tpu_torch/kernels/csrc,
-     and print what the compiler allotted K1-K5, S1, P1, S2 and S4
+     and print what the compiler allotted K1-K5, S1, P1 and S2-S4
      (registers, spills); compile csrc/probes.cu to PTX and fail unless
      S4's kernels multiply and add with mul.rn and add.rn (packed bf16x2
-     in the bfloat16 ones), with no fma and, in bfloat16, no conversion;
+     in the bfloat16 ones), with no fma and, in bfloat16, no conversion,
+     and S3's with mul.rn.f32 and add.rn.f32, no fma and no conversion;
      print the FFMA, HFMA2 and other arithmetic of S4's kernels in the
      built SASS (cuobjdump -sass);
   3. each kernel against its plain PyTorch version at the shapes of the main
@@ -60,10 +61,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
      variant where they differ (S2's rows, S4 in bfloat16);
      S2 and S4 bit for bit over ragged, tiny and unaligned planes, odd
      lengths, 0-64 steps and bfloat16 subnormals, ties, signed zeros and
-     exponent gaps; the launch floor (P1 and clone, phase 3) printed beside
-     S2 and S4; then the copy rate (S2) and the float32 and bfloat16
-     elementwise rates (S4) that the card sustains at sizes that fill it
-     many times over;
+     exponent gaps; S3 bit for bit, both forms, over ragged widths, windows
+     at 0, 1 and their edges, 1-1,320 rows, unaligned views and special
+     values (signed zeros, subnormals, overflowing sums, +-inf); the launch
+     floor (P1 and clone, phase 3) printed beside S2-S4; then the copy rate
+     (S2) and the float32 and bfloat16 elementwise rates (S4) that the card
+     sustains at sizes that fill it many times over;
  11. the host path on phase 4's frames, for both configurations: push with
      graph=False equal to phases 4 and 9 (graphs on) bit for bit with the
      same launch counts, run(prefetch=2) equal to run(prefetch=0) bit for
@@ -202,10 +205,14 @@ SUSTAINED_COPY_HW = (8192, 4096)  # 512 MiB moved a call
 SUSTAINED_CHAIN = (1 << 23, 1024)  # elements, steps: 17.2 G operations a call
 SUSTAINED_SETS = 4
 SASS_OPS = ("FFMA", "HFMA2", "FMUL", "FADD", "HMUL2", "HADD2", "F2FP")  # counted in S4's kernels
-# phase 10's bit-for-bit sweeps of S2 and S4: plane heights and widths (each
-# also as a view 4 bytes past a 16-byte boundary), chain lengths (odd) and
-# step counts, and the random pairs of probes.bf16_sweep_patterns
+# phase 10's bit-for-bit sweeps of S2-S4: plane heights and widths (each
+# also as a view 4 bytes past a 16-byte boundary); S3's widths, windows (and
+# W - 12 at each width) and leading dims (1, 3 and 1,320 rows, 2-D and 3-D);
+# chain lengths (odd) and step counts, and the random pairs of
+# probes.bf16_sweep_patterns
 S2_SWEEP_H, S2_SWEEP_W = (1, 2, 1080), (1, 3, 537, 540)
+S3_SWEEP_W, S3_SWEEP_WIN = (13, 16, 1277, 1280), (0, 1, 1155, 1156)
+S3_SWEEP_LEAD = ((1,), (1, 1), (3,), (3, 1), (1320,), (15, 88))
 S4_SWEEP_N, S4_SWEEP_STEPS = (1, 3, 7, 9, 1001, 524_287), (0, 1, 3, 64)
 S4_SPECIAL_N = 100_000
 FLOW_RANGES = [(0.0, 1.0)] * 2 + [(-2.0, 2.0)] * 2  # K3/K4 timing inputs: frames, then flows
@@ -1012,16 +1019,19 @@ def phase_probes(device, n=100):
     (device time of back-to-back launches, utils/profiling.time_use_once),
     its plain version and, where one exists, the library call. The counts
     of the timed kernel calls are read right after them; the comparisons
-    with the plain versions come after, then S2's and S4's bit-for-bit sweeps
+    with the plain versions come after, then S2-S4's bit-for-bit sweeps
     (ragged and tiny planes, an unaligned view, odd lengths, several step
-    counts, bfloat16 subnormals, ties, signed zeros and exponent gaps), then
-    the rates the card sustains."""
+    counts, bfloat16 subnormals, ties, signed zeros and exponent gaps, S3's
+    windows at their edges and special float32 values), then the rates the
+    card sustains."""
     import torch
     import torch.nn.functional as F
 
     from optical_flow_tpu_torch import kernels
     from optical_flow_tpu_torch.kernels import probes as P
-    from optical_flow_tpu_torch.utils.profiling import Cost, kernel_cost, stage_roofline, time_use_once
+    from optical_flow_tpu_torch.utils.profiling import (
+        Cost, colsum_cost, kernel_cost, stage_roofline, time_use_once,
+    )
 
     rng = np.random.RandomState(SEED + 3)
 
@@ -1123,7 +1133,7 @@ def phase_probes(device, n=100):
     n4 = int(np.prod(P.S4_SHAPE))
     cost = {
         "interleave": kernel_cost("interleave", [a, b], [want_c]),
-        "colsum": kernel_cost("colsum", [x], [x], outputs_counted=x.numel() // x.shape[-1] * P.S3_WIN),
+        "colsum": colsum_cost(x.shape, P.S3_WIN),
         "mul_add_chain": Cost(3 * 4 * n4, 2 * P.S4_STEPS * n4),
     }
     rates = {
@@ -1172,9 +1182,11 @@ def phase_probes(device, n=100):
 
 
 def probe_sweeps(device, rng):
-    """S2 and S4 held bit for bit (their bit patterns compared with
-    torch.equal) over ragged, tiny and unaligned inputs, both paths of each
-    kernel; raises on any difference. Returns the cases run by path."""
+    """S2-S4 held bit for bit (their bit patterns compared with torch.equal)
+    over ragged, tiny and unaligned inputs, both paths of each kernel, S3
+    on special values (probes.s3_sweep_values: signed zeros, subnormals,
+    magnitudes near FLT_MAX, +-inf); raises on any difference. Returns the
+    calls of each probe by path."""
     import torch
 
     from optical_flow_tpu_torch.kernels import probes as P
@@ -1191,7 +1203,7 @@ def probe_sweeps(device, rng):
         assert (x.data_ptr() % 16 != 0) == offset
         return x
 
-    bad, paths = [], {"quad": 0, "scalar": 0}
+    bad, paths = [], {p: {"quad": 0, "scalar": 0} for p in ("S2", "S3", "S4")}
     s2 = {"rows": (P.interleave_rows_cuda, P.interleave_rows_plain),
           "cols_float2": (lambda a, b: P.interleave_cols_cuda(a, b, store="float2"),
                           P.interleave_cols_plain),
@@ -1206,9 +1218,23 @@ def probe_sweeps(device, rng):
                 a, b = plane(), plane()
                 for v, (kernel, plain) in s2.items():
                     quad = P.quad_path(a, b, row_floats=W if v == "rows" else None)
-                    paths["quad" if quad else "scalar"] += 1
+                    paths["S2"]["quad" if quad else "scalar"] += 1
                     if not same(kernel(a, b), plain(a, b)):
                         bad.append(("interleave", v, H, W, offset))
+    for W in S3_SWEEP_W:
+        wins = sorted({w for w in S3_SWEEP_WIN + (W - 12,) if w <= W - 12})
+        for lead in S3_SWEEP_LEAD:
+            count = int(np.prod(lead)) * W
+            for offset in (False, True):
+                x = flat(count, offset, lambda k: torch.from_numpy(
+                    P.s3_sweep_values(rng, (k,))).to(device)).view(*lead, W)
+                quad = P.quad_path(x, row_floats=W)
+                for win in wins:
+                    want = P.colsum_plain(x, win)
+                    for reads in ("smem", "shuffle"):
+                        paths["S3"]["quad" if quad else "scalar"] += 1
+                        if not same(P.colsum_cuda(x, win, reads=reads), want):
+                            bad.append(("colsum", reads, lead, W, win, offset))
     for dt in (torch.float32, torch.bfloat16):
         for count in S4_SWEEP_N:
             for offset in (False, True):
@@ -1217,7 +1243,7 @@ def probe_sweeps(device, rng):
                 b = flat(count, offset, lambda k: (torch.from_numpy(rng.rand(k).astype(np.float32))
                                                    * 1e-3).to(device, dt))
                 for steps in S4_SWEEP_STEPS:
-                    paths["quad" if P.quad_path(a, b) else "scalar"] += 1
+                    paths["S4"]["quad" if P.quad_path(a, b) else "scalar"] += 1
                     if not same(P.mul_add_chain_cuda(a, b, steps), P.mul_add_chain_plain(a, b, steps)):
                         bad.append(("mul_add_chain", str(dt), count, offset, steps))
     # bfloat16 special values, and float32 random finite bit patterns
@@ -1236,7 +1262,7 @@ def probe_sweeps(device, rng):
             x, y = (a[1:], b[1:]) if offset else (a, b)
             for steps in S4_SWEEP_STEPS:
                 special_cases += x.numel()
-                paths["quad" if P.quad_path(x, y) else "scalar"] += 1
+                paths["S4"]["quad" if P.quad_path(x, y) else "scalar"] += 1
                 got, want = P.mul_add_chain_cuda(x, y, steps), P.mul_add_chain_plain(x, y, steps)
                 if not same(got, want):
                     ints = torch.int16 if name == "bf16" else torch.int32
@@ -1244,8 +1270,8 @@ def probe_sweeps(device, rng):
                     bad.append(("mul_add_chain special", name, offset, steps, "at", diff))
     torch.cuda.synchronize()
     if bad:
-        raise AssertionError(f"S2/S4 differ from their plain versions: {bad[:8]} ({len(bad)} cases)")
-    log(f"  S2/S4 sweeps bit for bit: {paths} calls, {special_cases} special chain elements")
+        raise AssertionError(f"S2-S4 differ from their plain versions: {bad[:8]} ({len(bad)} cases)")
+    log(f"  S2-S4 sweeps bit for bit: {paths} calls, {special_cases} special chain elements")
     return {"paths": paths, "special_elements": special_cases}
 
 
@@ -2052,9 +2078,9 @@ def pyramid_graph_capture(device):
         return {"captured": False, "error": f"{type(e).__name__}: {e}"[:300]}
 
 
-def ptx_ops(source, kernel):
+def ptx_ops(source, kernels):
     """{mangled kernel name: {floating-point PTX op: count}} for the kernels
-    of csrc/`source` whose name contains `kernel`, compiled to PTX with the
+    of csrc/`source` whose name contains one of `kernels`, compiled to PTX with the
     library's flags (the PTX is what -fmad and the .rn intrinsics decide;
     ptxas then only schedules it)."""
     import pathlib
@@ -2071,7 +2097,7 @@ def ptx_ops(source, kernel):
     for line in out.read_text().splitlines():
         m = re.search(r"\.entry\s+([\w$]+)", line)
         if m:
-            name = m[1] if kernel in m[1] else None
+            name = m[1] if any(k in m[1] for k in kernels) else None
             if name:
                 counts[name] = {}
         elif name:
@@ -2081,18 +2107,23 @@ def ptx_ops(source, kernel):
     return counts
 
 
-def chain_ptx_faults(ops):
-    """S4's kernels whose PTX would not round each multiply and add apart:
-    {name: (fused or converting ops, required ops missing)}. Every kernel
-    needs mul.rn and add.rn of its lanes' type (bf16x2 on the bfloat16
-    16-byte path, bf16 on its scalar path, f32), and none may hold an fma;
-    the bfloat16 ones no conversion either."""
+def chain_lane(name):
+    """The lane type of S4's kernel `name`: bf16x2 on the bfloat16 16-byte
+    path, bf16 on its scalar path, f32."""
+    m = re.search(r"mul_add_chain_kernelI(f|13__nv_bfloat16)Lb([01])E", name)
+    return "f32" if m[1] == "f" else "bf16x2" if m[2] == "1" else "bf16"
+
+
+def ptx_faults(ops, lane_of, cvt_ok=lambda lane: False):
+    """The kernels of `ops` whose PTX would not round each multiply and add
+    apart: {name: (fused or converting ops, required ops missing)}. Every
+    kernel needs mul.rn and add.rn of its lanes' type, `lane_of(name)`, and
+    may hold no fma, nor a conversion unless `cvt_ok(lane)`."""
     faults = {}
     for name, found in ops.items():
-        m = re.search(r"mul_add_chain_kernelI(f|13__nv_bfloat16)Lb([01])E", name)
-        lane = "f32" if m[1] == "f" else "bf16x2" if m[2] == "1" else "bf16"
+        lane = lane_of(name)
         wrong = sorted(op for op in found
-                       if op.startswith("fma.") or (lane != "f32" and op.startswith("cvt.")))
+                       if op.startswith("fma.") or (op.startswith("cvt.") and not cvt_ok(lane)))
         missing = sorted({f"mul.rn.{lane}", f"add.rn.{lane}"} - set(found))
         if wrong or missing:
             faults[name] = (wrong, missing)
@@ -2169,21 +2200,30 @@ def main() -> int:
         m = re.search(r"pyrup_strip_kernelILi(\d+)ELb(\d)E", line)
         log(f"  ptxas pyrup_strip_kernel<rows={m[1]}, quad={m[2]}>: {line.split(': ', 1)[1]}"
             if m else f"  ptxas {line}")
-    for kernel in ("pyrdown_kernel", "tile_copy", "interleave", "mul_add_chain"):
+    for kernel in ("pyrdown_kernel", "tile_copy", "interleave", "colsum", "mul_add_chain"):
         for line in _lib.ptxas_info(kernel):
             log(f"  ptxas {line}")
     # S4 must round every multiply and add apart, as its PTX says; the SASS
     # is printed beside it (ptxas issues part of the packed bf16 multiplies
     # and adds as HFMA2.MMA with a zero addend or a multiplier of one)
-    ptx = ptx_ops("probes.cu", "mul_add_chain")
+    probe_ptx = ptx_ops("probes.cu", ("mul_add_chain", "colsum"))
+    ptx = {k: c for k, c in probe_ptx.items() if "mul_add_chain" in k}
     sass, forms = sass_counts(path, "mul_add_chain")
     for name, c in ptx.items():
         log(f"  ptx {name}: {json.dumps(c)}")
     for name, c in sass.items():
         log(f"  sass {name}: {json.dumps(c)} {json.dumps(forms[name])}")
-    faults = chain_ptx_faults(ptx)
+    faults = ptx_faults(ptx, chain_lane, cvt_ok=lambda lane: lane == "f32")
     if len(ptx) != 8 or faults:
         raise AssertionError(f"S4's PTX: {len(ptx)} kernels of 8, faults (fused or converting "
+                             f"ops, ops missing): {faults}")
+    # S3 must round every product and sum apart too, its weights folded
+    ptx = {k: c for k, c in probe_ptx.items() if "colsum" in k}
+    for name, c in ptx.items():
+        log(f"  ptx {name}: {json.dumps(c)}")
+    faults = ptx_faults(ptx, lambda name: "f32")
+    if len(ptx) != 4 or faults:
+        raise AssertionError(f"S3's PTX: {len(ptx)} kernels of 4, faults (fused or converting "
                              f"ops, ops missing): {faults}")
 
     per_kernel = phase_kernels(device)
@@ -2215,7 +2255,7 @@ def main() -> int:
     log(f"[10 probes] {json.dumps(prb)}")
     floor = {"tile_copy": per_kernel["tile_copy"]["device_ms"],
              "clone": per_kernel["tile_copy"]["library_ms"]}
-    for name in ("interleave", "mul_add_chain"):
+    for name in ("interleave", "colsum", "mul_add_chain"):
         for v, t in prb["ms"][name].items():
             log(f"  {name} {v}: {t * 1e3:.2f} us; launch floor: P1 {floor['tile_copy'] * 1e3:.2f} us, clone "
                 f"{floor['clone'] * 1e3:.2f} us")
@@ -2300,8 +2340,7 @@ def main() -> int:
         for key in ("plain_ms_by_variant", "library_ms_by_variant"):
             if name in prb[key]:
                 per_kernel[name][key] = prb[key][name]
-        if name in ("interleave", "mul_add_chain"):
-            per_kernel[name]["launch_floor_ms"] = floor
+        per_kernel[name]["launch_floor_ms"] = floor
     # K2 has one row, the pyramid call of the paths (one count a call, one
     # grid a level below the input). Phase 3's single levels (oft_pyrdown,
     # the same kernel as one grid, called by no path) stand in its by_shape

@@ -59,12 +59,12 @@ _ARGTYPES = {
     "oft_pyrup_warp_lk_tile": [_P] * 6 + [_I, _I, _I, _I, _F] + [_I] * 6 + [_P],
     "oft_tile_copy": [_P, _P, _L, _P],
     "oft_pyrup": [_P] * 4 + [_I] * 3 + [_P],
-    # the probes S2-S4 (csrc/probes.cu); S2's and S4's last int: take the 16-byte path
+    # the probes S2-S4 (csrc/probes.cu); the last int of each: take the 16-byte path
     "oft_interleave_rows": [_P] * 3 + [_I] * 3 + [_P],
     "oft_interleave_cols_f2": [_P] * 3 + [_I] * 3 + [_P],
     "oft_interleave_cols_smem": [_P] * 3 + [_I] * 3 + [_P],
-    "oft_colsum_smem": [_P] * 2 + [_I] * 3 + [_P],
-    "oft_colsum_shfl": [_P] * 2 + [_I] * 3 + [_P],
+    "oft_colsum_smem": [_P] * 2 + [_I] * 4 + [_P],
+    "oft_colsum_shfl": [_P] * 2 + [_I] * 4 + [_P],
     "oft_mul_add_chain_f32": [_P] * 3 + [_L, _I, _I, _P],
     "oft_mul_add_chain_bf16": [_P] * 3 + [_L, _I, _I, _P],
 }

@@ -29,9 +29,28 @@
 // (pallas_call in run() at :40; kernels :22 and :31), the slice variant's
 // output: out[r, o] = sum over t = -5..6 of float32(0.1 t) * x[r, o+6+t]
 // for o < WIN, summed from 0 in the order of t, and out[r, o] = 0 for
-// o >= WIN. Two Hopper forms of the tap reads: from a row staged in
-// shared memory, or from registers through warp shuffles. Bound: memory,
-// 4 B read and 4 B written per element for 24 flops.
+// o >= WIN. Two Hopper forms of the tap reads: from shared memory, or from
+// registers through warp shuffles. Bound on the H100: memory, the window's
+// inputs x[r, 1 .. win + 11] read once and every output written once, for
+// 24 flops per windowed output; at the probe's (15, 88, 1280) that is
+// 12.92 MB, 3.86 us at 3.35 TB/s (the launch floor plus the rate the card
+// sustains make about 6.3 us). Design: each thread computes one quad,
+// four consecutive outputs 4c .. 4c + 3, from the sixteen inputs
+// x[4c .. 4c + 15], which are the float4s of its own quad and of the three
+// to its right, and stores the quad as one float4; 32-bit indices, one
+// 32-bit division a quad for its column; 128 threads a block. Both forms
+// load alike: a float4 a thread, and the first three threads of a block
+// (smem) or lanes of a warp (shuffle) one more, the quads past the block or
+// the warp. smem: the block stages its float4s in shared memory and each
+// thread reads its three neighbours' from there. shuffle: each lane takes
+// them from lanes l + 1 .. l + 3 by one shuffle of each component. Larger
+// spans (several rows a block, up to eight quads a thread) and blocks of
+// 64, 256 and 512 threads measured slower on the H100 (PERF.md). Each step
+// is __fadd_rn(acc, __fmul_rn(w, x)), never an fma, the zero tap included,
+// so both equal the plain version bit for bit (chip_smoke.py phase 2 reads
+// their PTX). The 16-byte path needs 16-byte-aligned tensors and
+// W % 4 == 0; otherwise the same kernels load and store a quad one float
+// at a time, guarded at the row's end (the wrapper decides, quad_path).
 //
 // S4, the elementwise rate. Replaces scripts/tpu_vpu_rate_probe.py
 // (measure() at :49, make_kernel :35): acc = a, then `steps` times
@@ -74,7 +93,7 @@
 namespace oft {
 namespace {
 
-constexpr int PT = 256;   // threads per block of S3
+constexpr int S3T = 128;  // threads per block of S3, one output quad a thread
 constexpr int S2T = 256;  // threads per block of S2, one item of each plane a thread
 constexpr int S4T = 256;  // threads per block of S4
 constexpr int S4_CHAINS = 4;  // independent chains a thread of S4
@@ -167,53 +186,115 @@ inline unsigned blocks_for(unsigned items, unsigned per_block) {
 
 // ------------------------------------------------------------------- S3
 
-constexpr int S3_TAPS = 12;  // t = -5..6 -> offsets 1..12
+constexpr int S3_TAPS = 12;  // t = -5..6 -> offsets 1..12 from the output
+
+// Quad q = r * wq + c holds outputs 4c .. 4c + 3 of row r. Their sixteen
+// inputs x[r, 4c .. 4c + 15] are the float4s of quads q .. q + 3: a quad
+// with 4c < win has them all inside its row (win <= W - 12). On the
+// 16-byte path (W % 4 == 0) wq = W / 4 and quad q is float4 q of x;
+// otherwise wq = ceil(W / 4) and a quad is loaded and stored a float at a
+// time, zeros past the row's end.
+struct S3Shape {
+  unsigned W, wq, nq, win;  // width, quads a row, quads, window
+};
+
+__device__ __forceinline__ float4 zero4() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
 
 __device__ __forceinline__ float s3_weight(int k) {  // float32(0.1 * t), t = k - 6
   return (float)(0.1 * (double)(k - 6));
 }
 
-// One block per row; the row is staged in shared memory (W floats).
-__global__ void colsum_smem_kernel(const float* __restrict__ x, float* __restrict__ out, int W,
-                                   int win) {
-  extern __shared__ float srow[];
-  const size_t row = (size_t)blockIdx.x * W;
-  for (int c = threadIdx.x; c < W; c += PT) srow[c] = x[row + c];
+template <bool VEC>
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ x, const S3Shape& s,
+                                            unsigned q) {
+  if (q >= s.nq) return zero4();
+  if constexpr (VEC) {
+    return reinterpret_cast<const float4*>(x)[q];
+  } else {
+    const unsigned c = q % s.wq, o = 4 * c, e = (q - c) / s.wq * s.W + o;
+    float a[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[j] = o + j < s.W ? x[e + j] : 0.0f;
+    return make_float4(a[0], a[1], a[2], a[3]);
+  }
+}
+
+// Quad q's outputs from the float4s a of quads q .. q + 3, stored: summed
+// from +0 in the order of t, each step one rounded product and one rounded
+// sum (never an fma, whatever -fmad says), the zero tap included (0 * inf
+// is NaN in the plain version too); outputs at or past win are 0.
+template <bool VEC>
+__device__ __forceinline__ void colsum_store(float* __restrict__ out, const S3Shape& s,
+                                             unsigned q, const float4 (&a)[4]) {
+  const unsigned c = q % s.wq, o = 4 * c;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (o < s.win) {
+    const float v[16] = {a[0].x, a[0].y, a[0].z, a[0].w, a[1].x, a[1].y, a[1].z, a[1].w,
+                         a[2].x, a[2].y, a[2].z, a[2].w, a[3].x, a[3].y, a[3].z, a[3].w};
+#pragma unroll
+    for (int k = 1; k <= S3_TAPS; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(s3_weight(k), v[j + k]));
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (o + j >= s.win) acc[j] = 0.0f;
+  if constexpr (VEC) {
+    reinterpret_cast<float4*>(out)[q] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+    const unsigned e = (q - c) / s.wq * s.W + o;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (o + j < s.W) out[e + j] = acc[j];
+  }
+}
+
+// Thread t of a block takes quad t of the block's S3T and loads its float4,
+// threads 0-2 also the three quads past them, all before the block stages
+// them in shared memory; each thread then reads the float4s of its three
+// right-hand neighbours from there.
+template <bool VEC>
+__global__ void __launch_bounds__(S3T)
+    colsum_smem_kernel(const float* __restrict__ x, float* __restrict__ out, S3Shape s) {
+  __shared__ float4 staged[S3T + 3];
+  const unsigned t = threadIdx.x, q = blockIdx.x * S3T + t;
+  const float4 v = load_quad<VEC>(x, s, q);
+  const float4 next = t < 3 ? load_quad<VEC>(x, s, q + S3T) : zero4();
+  staged[t] = v;
+  if (t < 3) staged[S3T + t] = next;
   __syncthreads();
-  for (int o = threadIdx.x; o < W; o += PT) {
-    float acc = 0.0f;
-    if (o < win) {
-#pragma unroll
-      for (int k = 1; k <= S3_TAPS; ++k) acc = acc + s3_weight(k) * srow[o + k];
-    }
-    out[row + o] = acc;
-  }
+  if (q >= s.nq) return;
+  const float4 a[4] = {v, staged[t + 1], staged[t + 2], staged[t + 3]};
+  colsum_store<VEC>(out, s, q, a);
 }
 
-// One warp per 32 consecutive outputs of a row: each lane holds x[o] and
-// x[o + 32], and tap k of lane l is lane (l + k) mod 32 of one of the two.
-__global__ void colsum_shfl_kernel(const float* __restrict__ x, float* __restrict__ out, int rows,
-                                   int W, int win) {
-  const int lane = threadIdx.x & 31;
-  const int chunks = (W + 31) / 32;
-  const long long wid = ((long long)blockIdx.x * PT + threadIdx.x) >> 5;
-  if (wid >= (long long)rows * chunks) return;  // whole warps leave together
-  const size_t row = (size_t)(wid / chunks) * W;
-  const int o = (int)(wid % chunks) * 32 + lane;
-  const float v0 = o < W ? x[row + o] : 0.0f;
-  const float v1 = o + 32 < W ? x[row + o + 32] : 0.0f;
-  float acc = 0.0f;
-#pragma unroll
-  for (int k = 1; k <= S3_TAPS; ++k) {
-    const int src = (lane + k) & 31;
-    const float lo = __shfl_sync(0xffffffffu, v0, src);
-    const float hi = __shfl_sync(0xffffffffu, v1, src);
-    acc = acc + s3_weight(k) * (lane + k < 32 ? lo : hi);
-  }
-  if (o < W) out[row + o] = o < win ? acc : 0.0f;
+__device__ __forceinline__ float4 shfl4(float4 v, unsigned src) {
+  return make_float4(__shfl_sync(0xffffffffu, v.x, src), __shfl_sync(0xffffffffu, v.y, src),
+                     __shfl_sync(0xffffffffu, v.z, src), __shfl_sync(0xffffffffu, v.w, src));
 }
 
+// Lane l of a warp takes quad l of the warp's 32 and loads its float4,
+// lanes 0-2 also the three quads past them. Quad q + j (j = 1..3) is in
+// lane (l + j) % 32: its own float4 or, for the last j lanes, its second;
+// the source lane offers the one that some lane reads, so each
+// neighbour's float4 costs one shuffle of each component.
+template <bool VEC>
+__global__ void __launch_bounds__(S3T)
+    colsum_shfl_kernel(const float* __restrict__ x, float* __restrict__ out, S3Shape s) {
+  const unsigned lane = threadIdx.x & 31, q = blockIdx.x * S3T + threadIdx.x;
+  const float4 v = load_quad<VEC>(x, s, q);
+  const float4 next = lane < 3 ? load_quad<VEC>(x, s, q + 32) : zero4();
+  float4 a[4] = {v};
+#pragma unroll
+  for (unsigned j = 1; j < 4; ++j) a[j] = shfl4(lane < j ? next : v, (lane + j) & 31);
+  if (q >= s.nq) return;  // after the shuffles, which take the whole warp
+  colsum_store<VEC>(out, s, q, a);
+}
 
+inline S3Shape colsum_shape(int rows, int W, int win, bool vec) {
+  const unsigned wq = vec ? W / 4 : (W + 3) / 4;
+  return {(unsigned)W, wq, (unsigned)rows * wq, (unsigned)win};
+}
 
 // ------------------------------------------------------------------- S4
 
@@ -403,16 +484,24 @@ int oft_interleave_cols_smem(const float* a, const float* b, float* out, int H, 
   return (int)cudaGetLastError();
 }
 
-int oft_colsum_smem(const float* x, float* out, int rows, int W, int win, void* stream) {
-  oft::colsum_smem_kernel<<<rows, oft::PT, W * sizeof(float), (cudaStream_t)stream>>>(x, out, W,
-                                                                                     win);
+// S3: `vec` selects the 16-byte path (kernels/probes.py quad_path); rows * W < 2^31.
+int oft_colsum_smem(const float* x, float* out, int rows, int W, int win, int vec, void* stream) {
+  const oft::S3Shape s = oft::colsum_shape(rows, W, win, vec);
+  const unsigned blocks = oft::blocks_for(s.nq, oft::S3T);
+  if (vec)
+    oft::colsum_smem_kernel<true><<<blocks, oft::S3T, 0, (cudaStream_t)stream>>>(x, out, s);
+  else
+    oft::colsum_smem_kernel<false><<<blocks, oft::S3T, 0, (cudaStream_t)stream>>>(x, out, s);
   return (int)cudaGetLastError();
 }
 
-int oft_colsum_shfl(const float* x, float* out, int rows, int W, int win, void* stream) {
-  const long long threads = (long long)rows * ((W + 31) / 32) * 32;
-  const unsigned blocks = (unsigned)((threads + oft::PT - 1) / oft::PT);
-  oft::colsum_shfl_kernel<<<blocks, oft::PT, 0, (cudaStream_t)stream>>>(x, out, rows, W, win);
+int oft_colsum_shfl(const float* x, float* out, int rows, int W, int win, int vec, void* stream) {
+  const oft::S3Shape s = oft::colsum_shape(rows, W, win, vec);
+  const unsigned blocks = oft::blocks_for(s.nq, oft::S3T);
+  if (vec)
+    oft::colsum_shfl_kernel<true><<<blocks, oft::S3T, 0, (cudaStream_t)stream>>>(x, out, s);
+  else
+    oft::colsum_shfl_kernel<false><<<blocks, oft::S3T, 0, (cudaStream_t)stream>>>(x, out, s);
   return (int)cudaGetLastError();
 }
 

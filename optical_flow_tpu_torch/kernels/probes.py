@@ -8,16 +8,21 @@ are made of (``chip_smoke.py`` phase 10).
       (a, b) pairs formed in registers (store='float2') or through a tile in
       shared memory (store='smem'), both stored 16 bytes at a time
   S3  colsum_cuda  the 12-tap weighted column sum of K3/K4's stencil reads
-      (scripts/tpu_roll_micro.py, the slice variant's output); taps read from
-      a shared-memory row (reads='smem') or by warp shuffles (reads='shuffle')
+      (scripts/tpu_roll_micro.py, the slice variant's output): four outputs a
+      thread from its own float4 of input and its three right-hand
+      neighbours', stored as one float4, 128 threads a block; the
+      neighbours' float4s read from shared memory (reads='smem') or taken
+      by warp shuffles (reads='shuffle'). Bound at the probe's (15, 88,
+      1280), the window's inputs read and every output written
+      (profiling.colsum_cost): 12.92 MB, 3.86 us at 3.35 TB/s
   S4  mul_add_chain_cuda  the elementwise rate: acc = a, then ``steps`` times
       acc = acc * b + a, float32 or bfloat16 (scripts/tpu_vpu_rate_probe.py)
 
 Every kernel equals its plain version bit for bit. A CUDA tensor launches
-the kernel or raises; a CPU tensor runs the plain version. S2 and S4 take
+the kernel or raises; a CPU tensor runs the plain version. S2-S4 take
 their 16-byte path where ``quad_path`` says so, and otherwise the same
-kernels one element a lane. S2's kernels index with 32 bits: on the card a
-plane holds fewer than 2^31 elements.
+kernels one element a lane. S2's and S3's kernels index with 32 bits: on
+the card their tensors hold fewer than 2^31 elements.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ __all__ = [
     "BF16_NAMED_PAIRS", "S2_SHAPES", "S3_SHAPE", "S3_TAPS", "S3_WIN", "S4_SHAPE", "S4_STEPS",
     "bf16_sweep_patterns", "colsum_cuda", "colsum_plain", "interleave_cols_cuda",
     "interleave_cols_plain", "interleave_rows_cuda", "interleave_rows_plain",
-    "mul_add_chain_cuda", "mul_add_chain_plain", "quad_path",
+    "mul_add_chain_cuda", "mul_add_chain_plain", "quad_path", "s3_sweep_values",
 ]
 
 S2_SHAPES = ((256, 256), (1080, 540))  # the probe's planes and the timed (1080, 540) -> 1080^2
@@ -45,18 +50,21 @@ def _check_planes(name, a, b):
                          f"{tuple(b.shape)}")
 
 
-def _check_cuda_planes(name, a, b):
-    _lib.check_cuda_f32(name, a, b)
-    if a.numel() >= 2**31:
-        raise ValueError(f"{name}: the kernels index planes of fewer than 2^31 elements, got "
-                         f"{tuple(a.shape)}")
+def _check_cuda_indexable(name, *tensors):
+    """Contiguous float32 on one card, and fewer than 2^31 elements: the
+    kernels index with 32 bits."""
+    _lib.check_cuda_f32(name, *tensors)
+    if tensors[0].numel() >= 2**31:
+        raise ValueError(f"{name}: the kernels index tensors of fewer than 2^31 elements, got "
+                         f"{tuple(tensors[0].shape)}")
 
 
 def quad_path(*tensors: torch.Tensor, row_floats=None) -> bool:
-    """Whether S2 or S4 takes its 16-byte path on these tensors: every one
-    starts on a 16-byte boundary and, for S2's rows (``row_floats``, the
-    width), so does every row (W % 4 == 0). Otherwise the kernel runs one
-    element a lane; a ragged length is the 16-byte path's tail."""
+    """Whether S2, S3 or S4 takes its 16-byte path on these tensors: every
+    one starts on a 16-byte boundary and, for S2's rows and S3
+    (``row_floats``, the width), so does every row (W % 4 == 0). Otherwise
+    the kernel runs one element a lane (S3: loads and stores one float at a
+    time); a ragged length is the 16-byte path's tail."""
     if row_floats is not None and row_floats % 4:
         return False
     return all(t.data_ptr() % 16 == 0 for t in tensors)
@@ -79,7 +87,7 @@ def interleave_rows_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_planes("interleave_rows_cuda", a, b)
     if not a.is_cuda:
         return interleave_rows_plain(a, b)
-    _check_cuda_planes("interleave_rows_cuda", a, b)
+    _check_cuda_indexable("interleave_rows_cuda", a, b)
     H, W = a.shape
     out = torch.empty(2 * H, W, dtype=a.dtype, device=a.device)
     if a.numel():
@@ -97,7 +105,7 @@ def interleave_cols_cuda(a: torch.Tensor, b: torch.Tensor, *, store: str = "floa
         raise ValueError(f"store must be one of {sorted(_COL_STORES)}, got {store!r}")
     if not a.is_cuda:
         return interleave_cols_plain(a, b)
-    _check_cuda_planes("interleave_cols_cuda", a, b)
+    _check_cuda_indexable("interleave_cols_cuda", a, b)
     H, W = a.shape
     out = torch.empty(H, 2 * W, dtype=a.dtype, device=a.device)
     if a.numel():
@@ -120,6 +128,30 @@ def colsum_plain(x: torch.Tensor, win: int = S3_WIN) -> torch.Tensor:
     return out
 
 
+def s3_sweep_values(rng, shape):
+    """float32 inputs (numpy) for holding S3 bit for bit: segments of 16
+    consecutive elements (in C order), each of one kind drawn at random:
+    standard normal values; eight +0.0 then eight -0.0 (the window whose
+    products are all -0.0: a sum started from its first product would be
+    -0.0); subnormals of either sign (their products round to signed
+    zeros); magnitudes in [2^127, 2^128) of either sign (partial sums
+    overflow, and where depends on the order of the taps); normal values
+    with one +-inf (0 * inf is NaN at the zero tap). ``rng`` is a numpy
+    RandomState."""
+    n = int(np.prod(shape))
+    kind = np.repeat(rng.randint(0, 5, (n + 15) // 16), 16)[:n]
+    sign = rng.randint(0, 2, n).astype(np.uint32) << 31
+    x = rng.randn(n).astype(np.float32)
+    zeros = np.where(np.arange(n) % 16 < 8, np.float32(0.0), np.float32(-0.0))
+    subnormal = (sign | rng.randint(1, 1 << 23, n).astype(np.uint32)).view(np.float32)
+    huge = (sign | (254 << 23) | rng.randint(0, 1 << 23, n).astype(np.uint32)).view(np.float32)
+    x = np.select([kind == 1, kind == 2, kind == 3], [zeros, subnormal, huge], x)
+    pos = np.repeat(rng.randint(0, 16, (n + 15) // 16), 16)[:n]
+    inf = (kind == 4) & (np.arange(n) % 16 == pos)
+    x[inf] = np.where(sign[inf], -np.inf, np.inf)
+    return x.reshape(shape)
+
+
 _COL_READS = {"smem": "oft_colsum_smem", "shuffle": "oft_colsum_shfl"}
 
 
@@ -131,11 +163,12 @@ def colsum_cuda(x: torch.Tensor, win: int = S3_WIN, *, reads: str = "smem") -> t
         raise ValueError(f"colsum_cuda: the taps of window {win} reach past width {W}")
     if not x.is_cuda:
         return colsum_plain(x, win)
-    _lib.check_cuda_f32("colsum_cuda", x)
+    _check_cuda_indexable("colsum_cuda", x)
     out = torch.empty_like(x)
     rows = x.numel() // max(W, 1)
     if rows and W:
-        _lib.launch(_COL_READS[reads], x.device, x.data_ptr(), out.data_ptr(), rows, W, win)
+        _lib.launch(_COL_READS[reads], x.device, x.data_ptr(), out.data_ptr(), rows, W, win,
+                    int(quad_path(x, out, row_floats=W)))
     return out
 
 

@@ -8,7 +8,8 @@ optical_flow_tpu/utils/profiling.py that the kernel tables need).
 - ``kernel_cost``: the bytes and operations of one call of a kernel, from
   its tensors and shapes. Each input byte is counted read once and each
   output byte written once; the operations are counted from the kernel's
-  source, per output position (``OPS_PER_OUTPUT``).
+  source, per output position (``OPS_PER_OUTPUT``). ``colsum_cost`` counts
+  only the inputs S3's window reads.
 - ``stage_roofline``: the least time the card could take for that work, the
   larger of bytes over the memory rate and operations over the rate for
   their type, against the H100's published peaks (``H100``); where given,
@@ -74,10 +75,22 @@ def kernel_cost(kind: str, inputs: Sequence[torch.Tensor], outputs: Sequence[tor
                 outputs_counted: Optional[int] = None) -> Cost:
     """Bytes and operations of one call of kernel ``kind``. The operations
     are ``OPS_PER_OUTPUT[kind]`` per element of the first output, or per
-    ``outputs_counted`` positions where that differs (S3's window, every
-    level of a pyramid)."""
+    ``outputs_counted`` positions where that differs (every level of a
+    pyramid)."""
     n = outputs[0].numel() if outputs_counted is None else outputs_counted
     return Cost(float(io_bytes(list(inputs) + list(outputs))), float(OPS_PER_OUTPUT[kind]) * n)
+
+
+def colsum_cost(shape: Sequence[int], win: int) -> Cost:
+    """Bytes and operations of one S3 call on a float32 input of ``shape``:
+    only the window's inputs, ``x[..., 1 : win + 12]``, are read; every
+    output is written."""
+    W = shape[-1]
+    rows = 1
+    for n in shape[:-1]:
+        rows *= n
+    read = win + 11 if win else 0
+    return Cost(4.0 * rows * (read + W), float(OPS_PER_OUTPUT["colsum"]) * rows * win)
 
 
 def stage_roofline(cost: Cost, ms: Optional[float] = None, *, dtype: torch.dtype = torch.float32,

@@ -63,11 +63,20 @@ def _s4_numpy(a, b, steps, bf16):
 
 def _s3_numpy(x, win):
     acc = np.zeros(x.shape[:-1] + (win,), np.float32)
-    for t in range(-5, 7):
-        acc = acc + np.float32(0.1 * t) * x[..., 6 + t : 6 + t + win]
+    with np.errstate(over="ignore", invalid="ignore"):  # the special values overflow, 0 * inf
+        for t in range(-5, 7):
+            acc = acc + np.float32(0.1 * t) * x[..., 6 + t : 6 + t + win]
     out = np.zeros_like(x)
     out[..., :win] = acc
     return out
+
+
+def _f32_bits(x):
+    """float32 bit patterns, every NaN as one pattern (its position counts,
+    not the payload the CPU's SIMD unit gives it)."""
+    x = np.array(x, np.float32)
+    x[np.isnan(x)] = np.nan
+    return x.view(np.int32)
 
 
 # ---------------------------------------------------------------- S2
@@ -101,12 +110,18 @@ def test_interleave_rejects_bad_input():
 # ---------------------------------------------------------------- S3
 
 
-@pytest.mark.parametrize("shape,win", [(probes.S3_SHAPE, probes.S3_WIN), ((3, 40), 28), ((2, 2, 13), 1)])
+@pytest.mark.parametrize("shape,win", [(probes.S3_SHAPE, probes.S3_WIN), ((3, 40), 28), ((2, 2, 13), 1),
+                                       ((2, 1277), 1265), ((3, 1, 20), 0), ((1, 1280), 1268)])
 @pytest.mark.parametrize("reads", ["smem", "shuffle"])
 def test_colsum_plain_matches_script(shape, win, reads):
-    x = np.random.RandomState(1).rand(*shape).astype(np.float32)
-    got = probes.colsum_cuda(torch.from_numpy(x), win, reads=reads)
-    np.testing.assert_array_equal(got.numpy(), _s3_numpy(x, win))
+    """Uniform values, then S3's sweep values (signed zeros, subnormals,
+    sums that overflow, +-inf), bit patterns compared: a sum started from
+    the first product instead of +0, the zero tap dropped or another order
+    of the taps would each differ on the second set."""
+    rng = np.random.RandomState(1)
+    for x in (rng.rand(*shape).astype(np.float32), probes.s3_sweep_values(rng, shape)):
+        got = probes.colsum_cuda(torch.from_numpy(x), win, reads=reads)
+        np.testing.assert_array_equal(_f32_bits(got.numpy()), _f32_bits(_s3_numpy(x, win)))
 
 
 def test_colsum_rejects_a_window_past_the_row():
@@ -161,9 +176,9 @@ def test_bf16_mul_add_round_once(op):
 
 
 def test_quad_path_choice():
-    """S2 and S4 take their 16-byte path where every tensor starts on a
-    16-byte boundary and, for S2's rows, every row does (W % 4 == 0); a
-    ragged length runs as the 16-byte path's tail."""
+    """S2-S4 take their 16-byte path where every tensor starts on a
+    16-byte boundary and, for S2's rows and S3, every row does (W % 4 ==
+    0); a ragged length runs as the 16-byte path's tail."""
     buf = torch.zeros(1080 * 540 + 1)
     a, off = buf[:-1].view(1080, 540), buf[1:].view(1080, 540)
     assert off.data_ptr() % 16 == 4
@@ -176,6 +191,14 @@ def test_quad_path_choice():
         odd = torch.zeros(524_288, dtype=dtype)
         assert probes.quad_path(odd[:-1], odd[:-1])  # odd n
         assert not probes.quad_path(odd[1:], odd[1:])  # 4 or 2 bytes past the boundary
+    # S3: x and its output, rows of W floats
+    x = torch.zeros(probes.S3_SHAPE)
+    out = torch.empty_like(x)
+    assert probes.quad_path(x, out, row_floats=1280)
+    flat = torch.zeros(3 * 1277 + 1)
+    assert not probes.quad_path(flat[:-1].view(3, 1277), out, row_floats=1277)  # ragged rows
+    four = torch.zeros(3 * 1280 + 1)
+    assert not probes.quad_path(four[1:].view(3, 1280), out, row_floats=1280)  # 4 bytes off
 
 
 def test_interleave_large_cpu_planes_run_plain(monkeypatch):
@@ -187,6 +210,15 @@ def test_interleave_large_cpu_planes_run_plain(monkeypatch):
     assert probes.interleave_rows_cuda(big, big) == "rows, plain"
     for store in ("float2", "smem"):
         assert probes.interleave_cols_cuda(big, big, store=store) == "columns, plain"
+
+
+def test_colsum_large_cpu_input_runs_plain(monkeypatch):
+    """S3's kernels index with 32 bits, so the card takes inputs of fewer
+    than 2^31 elements; a CPU input of any size runs the plain version."""
+    big = torch.zeros(1, 1).expand(2**16, 2**15)  # 2^31 elements, no memory behind them
+    monkeypatch.setattr(probes, "colsum_plain", lambda x, win: ("plain", tuple(x.shape), win))
+    for reads in ("smem", "shuffle"):
+        assert probes.colsum_cuda(big, 1156, reads=reads) == ("plain", (2**16, 2**15), 1156)
 
 
 def test_cpu_probes_launch_nothing():
@@ -223,6 +255,20 @@ def test_kernel_costs_on_known_shapes():
     s3 = profiling.kernel_cost("colsum", [], [torch.zeros(1)], outputs_counted=15 * 88 * 1156)
     assert s3.ops == 24 * 15 * 88 * 1156
     assert profiling.stage_roofline(s3)["bound_by"] == "operations"
+
+
+@pytest.mark.parametrize("shape, win, read", [((15, 88, 1280), 1156, 1167), ((3, 40), 28, 39),
+                                              ((2, 13), 0, 0)])
+def test_colsum_cost_reads_only_the_window(shape, win, read):
+    """S3 reads x[..., 1 : win + 12] (nothing at win = 0) and writes every
+    output: 12.92 MB, 3.857 us at the probe's shape."""
+    rows, W = int(np.prod(shape[:-1])), shape[-1]
+    c = profiling.colsum_cost(shape, win)
+    assert c == profiling.Cost(4 * rows * (read + W), 24 * rows * win)
+    if shape == probes.S3_SHAPE:
+        assert c.bytes == 12_920_160
+        assert profiling.stage_roofline(c)["bound_ms"] * 1e3 == pytest.approx(3.857, abs=1e-3)
+        assert profiling.stage_roofline(c)["bound_by"] == "bytes"
 
 
 def test_stage_roofline_against_measured_rates():
@@ -324,6 +370,17 @@ def test_probes_on_card_equal_plain(cuda_device):
                 for store in ("float2", "smem"):
                     got = probes.interleave_cols_cuda(a, b, store=store)
                     assert _same_bits(got, want_c), (store, H, W, offset)
+    # S3, both forms, over ragged and narrow widths, windows at 0, 1 and W -
+    # 12, 1-1,320 rows, unaligned views and special values
+    for lead, W in (((1,), 13), ((3, 1), 16), ((3,), 1277), ((15, 88), 1280)):
+        for offset in (0, 1):
+            n = int(np.prod(lead)) * W
+            x = torch.from_numpy(probes.s3_sweep_values(rng, (n + 1,))).to(cuda_device)
+            x = x[offset : offset + n].view(*lead, W)
+            for win in sorted({0, 1, min(1156, W - 12), W - 12}):
+                want = probes.colsum_plain(x, win)
+                for reads in ("smem", "shuffle"):
+                    assert _same_bits(probes.colsum_cuda(x, win, reads=reads), want), (lead, W, offset, win)
     # S4 at odd n, several step counts, unaligned; bfloat16 subnormals, ties,
     # signed zeros, negatives and exponent gaps
     ab, bb = probes.bf16_sweep_patterns(np.random.RandomState(5), 20_000)
