@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's streaming 1080^2 flow paths (the fast preset,
 unsharded and on a 2x2 tile mesh, and the reference-parity default
-configuration), the sparse tracker, Horn-Schunck, the exact 'shift' warp and
-structure from motion once on an NVIDIA GPU, and run the probes S2-S4.
+configuration), the sparse tracker, Horn-Schunck, the exact 'shift' warp,
+structure from motion and the mapper (incremental SLAM, stereo, the slam
+CLI) once on an NVIDIA GPU, and run the probes S2-S4.
 
     python3 chip_smoke.py
 
@@ -103,7 +104,27 @@ Phases, each printing one line (any failure raises and exits non-zero):
      within tests/test_slam.py's bars; (e) ms per call, device events,
      busy ms and idle share of each entry point, and of the 8-point null
      vector's two forms (a batched SVD of the tall float32 design matrices,
-     eigh of the float64 normal matrices).
+     eigh of the float64 normal matrices);
+ 14. the mapper (slam/): (a) incremental_slam on tests/test_incremental_slam.py's
+     loop at 720x1280 (10 frames, the focal scaled by 1280/416 and the loop
+     by 416/1280; rendered with scipy), on the card and on the CPU: the same
+     keyframes and loop edges, camera centres within 1e-3 of the loop
+     radius; against the truth after one global scale, the test's bars in
+     loop radii (mean < 0.05/0.12, max < 0.10/0.12) and a loop edge >= 6
+     keyframes long; K2 exactly once a frame plus twice a verified loop
+     candidate and twice an accepted loop; (b) the stereo rig of
+     tests/test_stereo_slam.py on that loop (baseline 0.3 x 416/1280): a
+     metric trajectory within the test's bars, card against CPU as in (a);
+     (c) dense_disparity on one textured 720x1280 rig pair (disparities
+     12-40 px): K1 and K3 (C = 12) within median 1e-3 px and q99 0.02 px of
+     the plain path, > 85% valid at < 1.5 px median error, exact launch
+     counts (its default pyr_impl 'poly' builds the pyramids plain); K3 at
+     C = 12 at each of its shapes bit for bit with its plain version, timed
+     on use-once inputs and in turns with it; (d) `python -m
+     optical_flow_tpu_torch slam` on (a)'s frames as raw BGR (pipe:): exit
+     0, the keyframe lines, a TUM file that reads back, and --imu refused;
+     (e) ms per call and per keyframe of each run, device events, busy ms
+     and idle share.
 Phase 3 also holds S1 at the three upsamples of a 1080^2 frame, and over
 a ragged sweep at odd and even coarse widths on both sides of its
 launcher's strip rule, bit for bit, and K1 at every level of the reference path, and times the one
@@ -111,8 +132,8 @@ PyTorch call that computes K2's and S1's function (cuDNN convolutions,
 TF32 off; the pyramid's: one a level). At the end, whether the pyramid's
 grids (one a level, programmatic dependent launch) can be captured into a
 CUDA graph (reported, not required). Launch counters are reset just before
-the runs of phases 4, 5, 7, 8, 9, 10, 11 (c), 12 (a), 12 (d) and 13 (a) and
-read just after each. Then one
+the runs of phases 4, 5, 7, 8, 9, 10, 11 (c), 12 (a), 12 (d), 13 (a), 14 (a)
+and 14 (c) and read just after each. Then one
 JSON line with the kernels (each with its least time on the card, from
 utils/profiling's byte and operation model against the published H100
 peaks, its time at the rates phase 10 sustained, its device time on
@@ -178,7 +199,7 @@ ATOL_WARP_LK = 0.0
 # the ragged and C sweep of K3-K5: shapes that leave partial blocks of the
 # kernel's tiles (29 columns, 32 or 64 rows), at several tap reaches C (clamp
 # 2C, flows scaled so that the quantized half-flow reaches +-C)
-SWEEP_C = (1, 4, 8)
+SWEEP_C = (1, 4, 8, 12)  # 12: dense_disparity's reach (warp_clamp 24, phase 14)
 K3_SWEEP = [(2, 270, 270), (2, 134, 198), (52, 38)]
 K4_SWEEP = [(2, 61, 37), (1080, 1000)]
 K5_SWEEP = {"warp_lk_tile": (270, 270), "pyrup_warp_lk_tile": (268, 268)}  # odd / even tiles
@@ -193,7 +214,9 @@ RUNS = {"stream": "VideoPipeline.push (phase 4)",
         "reference": "reference stream (phase 9)", "probes": "probes (phase 10)",
         "track": "sparse tracking, corners -> sparse LK -> RANSAC (phase 12 a)",
         "shift_controller": "coarse_to_fine warp_impl='shift' level_iters=2 (phase 12 d)",
-        "sfm": "multi_view_reconstruct, 8 frames of 720x1280 (phase 13 a)"}
+        "sfm": "multi_view_reconstruct, 8 frames of 720x1280 (phase 13 a)",
+        "slam": "incremental_slam, 10 frames of 720x1280 (phase 14 a)",
+        "stereo": "dense_disparity, one 720x1280 rig pair, C = 12 (phase 14 c)"}
 PROFILE_WARMUP, PROFILE_FRAMES = 5, 40
 REFERENCE_PROFILE_FRAMES = 20
 HOST_WARM, HOST_TIMED = 5, 30  # phase 11 (e): frames before and inside the timed window
@@ -227,6 +250,16 @@ TIMED_CALLS = 5  # phase 12 (e): calls timed after two of warm-up
 # bundle adjustment scenes of tests/test_slam.py (focal 500)
 SFM_FRAMES, SFM_HW, SFM_FOCAL, SFM_STEP = 8, (720, 1280), 1000.0, 0.02
 BA_FOCAL = 500.0
+# phase 14: tests/test_incremental_slam.py's and tests/test_stereo_slam.py's
+# scenes at 720x1280, the focal scaled by 1280/416 and the loop radii and the
+# rig baseline by 416/1280, so that a frame moves about as many pixels as in
+# the tests and the rig's disparities stay theirs (12-40 px); the loop's x
+# radius is the unit of the centre errors
+SLAM_FRAMES, SLAM_HW, SLAM_SCALE = 10, (720, 1280), 416 / 1280
+SLAM_FOCAL = 400.0 / SLAM_SCALE
+SLAM_BASELINE = 0.3 * SLAM_SCALE
+SLAM_RADIUS = 0.12 * SLAM_SCALE
+SLAM_KW = dict(loop_min_separation=6, loop_min_inliers=30, min_tracks=40, window=8)
 
 
 def log(msg: str) -> None:
@@ -2047,6 +2080,327 @@ def phase_sfm(device):
     return out, sfm_counts
 
 
+# ------------------------------------------------------------ phase 14: the mapper
+
+
+def depth_field(rng, hw):
+    """The tests' depth field: 10x13 noise zoomed (cubic) to `hw`, in [3, 12]."""
+    from scipy import ndimage
+
+    h, w = hw
+    return np.clip(4.0 + 6.0 * ndimage.zoom(rng.rand(10, 13).astype(np.float32),
+                                            (h / 10, w / 13), order=3), 3.0, 12.0)
+
+
+def loop_scene(hw, seed):
+    """tests/test_incremental_slam.py's and tests/test_stereo_slam.py's
+    scene at `hw`: a smooth uint8 texture (80x104 noise zoomed, cubic) and
+    the depth field."""
+    from scipy import ndimage
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    base = ndimage.zoom(rng.rand(80, 104).astype(np.float32), (h / 80, w / 104), order=3)
+    return (255 * (base - base.min()) / np.ptp(base)).astype(np.uint8), depth_field(rng, hw)
+
+
+def render_slam_loop(n=SLAM_FRAMES, hw=SLAM_HW, focal=SLAM_FOCAL, scale=SLAM_SCALE, seed=11):
+    """tests/test_incremental_slam.py::_render_loop at `hw` without cv2: a
+    camera on a loop of radii (0.12, 0.08) x `scale` over a textured plane
+    with a depth field of [3, 12] (cubic zooms, bilinear REFLECT_101
+    parallax). Returns (uint8 gray frames, true centres)."""
+    from scipy import ndimage
+
+    base, depth = loop_scene(hw, seed)
+    base = base.astype(np.float32)
+    h, w = hw
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    inv = focal / depth
+    frames, centres = [], []
+    for k in range(n):
+        th = 2 * np.pi * k / n
+        cx_w, cy_w = 0.12 * scale * np.sin(th), 0.08 * scale * (1 - np.cos(th))
+        img = ndimage.map_coordinates(base, [ys + cy_w * inv, xs + cx_w * inv], order=1,
+                                      mode="mirror")
+        frames.append(np.clip(np.rint(img), 0, 255).astype(np.uint8))
+        centres.append((cx_w, cy_w, 0.0))
+    return frames, np.asarray(centres)
+
+
+def render_view(base, depth, focal, cx_w, cy_w):
+    """tests/test_stereo_slam.py::_view without cv2: the exact render of the
+    textured surface from camera centre (cx_w, cy_w, 0), R = I, the inverse
+    map solved by fixed-point iteration. Returns (image, source u, v)."""
+    from scipy import ndimage
+
+    h, w = base.shape
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    u, v = xs.copy(), ys.copy()
+    for _ in range(8):
+        d = ndimage.map_coordinates(depth, [v, u], order=1, mode="nearest")
+        u = (xs + focal * float(cx_w) / d).astype(np.float32)
+        v = (ys + focal * float(cy_w) / d).astype(np.float32)
+    img = ndimage.map_coordinates(base.astype(np.float32), [v, u], order=1, mode="mirror")
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8), u, v
+
+
+def render_stereo_loop(n=SLAM_FRAMES, hw=SLAM_HW, focal=SLAM_FOCAL, scale=SLAM_SCALE, seed=11):
+    """tests/test_stereo_slam.py::_render_stereo_loop at `hw`: rectified
+    (left, right) pairs of a rig of baseline 0.3 x `scale` on (a)'s loop.
+    Returns (pairs, true centres of the left camera)."""
+    base, depth = loop_scene(hw, seed)
+    pairs, centres = [], []
+    for k in range(n):
+        th = 2 * np.pi * k / n
+        cx_w, cy_w = 0.12 * scale * np.sin(th), 0.08 * scale * (1 - np.cos(th))
+        pairs.append((render_view(base, depth, focal, cx_w, cy_w)[0],
+                      render_view(base, depth, focal, cx_w + 0.3 * scale, cy_w)[0]))
+        centres.append((cx_w, cy_w, 0.0))
+    return pairs, np.asarray(centres)
+
+
+def render_textured_rig(hw=SLAM_HW, focal=SLAM_FOCAL, baseline=SLAM_BASELINE, seed=4):
+    """tests/test_stereo_slam.py::_textured_rig at `hw` without cv2:
+    per-pixel noise under a light blur (sigma 1.2, 5 taps), the rig's
+    disparities those of the test (12-40 px). Returns (left, right, true
+    disparity)."""
+    from scipy import ndimage
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    base = ndimage.gaussian_filter((rng.rand(h, w) * 255).astype(np.float32), 1.2,
+                                   truncate=2 / 1.2, mode="mirror")
+    base = (255 * (base - base.min()) / np.ptp(base)).astype(np.uint8)
+    depth = depth_field(rng, hw)
+    left, ul, vl = render_view(base, depth, focal, 0.0, 0.0)
+    right = render_view(base, depth, focal, baseline, 0.0)[0]
+    d_src = ndimage.map_coordinates(depth.astype(np.float32), [vl, ul], order=1, mode="nearest")
+    return left, right, focal * baseline / d_src
+
+
+def centre_errors(res, centres, scale_fit=True):
+    """|estimated - true| camera centres of the keyframes, after one global
+    scale (fitted on keyframe 1, as tests/test_incremental_slam.py does)
+    unless the run is metric."""
+    est = res.centers()
+    true = np.asarray([centres[i] for i in res.keyframes])
+    s = np.linalg.norm(true[1]) / max(np.linalg.norm(est[1]), 1e-9) if scale_fit else 1.0
+    return np.linalg.norm(est * s - true, axis=1), s
+
+
+def compare_slam(what, card, cpu, centres, scale_fit):
+    """Card against CPU: the same keyframes and loop edges, camera centres
+    within 1e-3 of the loop radius (in the truth's units)."""
+    if card is None or cpu is None:
+        raise AssertionError(f"{what}: no map (card {card}, cpu {cpu})")
+    _, s = centre_errors(cpu, centres, scale_fit)
+    diff = float(np.abs(card.centers() - cpu.centers()).max() * s / SLAM_RADIUS)
+    same = {"keyframes_equal": card.keyframes == cpu.keyframes,
+            "loop_edges_equal": [e[:2] for e in card.loop_edges] == [e[:2] for e in cpu.loop_edges],
+            "centre_max_diff_over_radius": diff}
+    if not (same["keyframes_equal"] and same["loop_edges_equal"] and diff < 1e-3):
+        raise AssertionError(f"{what} card vs CPU: {same}, keyframes {card.keyframes} / "
+                             f"{cpu.keyframes}, loop edges {card.loop_edges} / {cpu.loop_edges}")
+    return same
+
+
+def slam_summary(res, centres, scale_fit):
+    err, _ = centre_errors(res, centres, scale_fit)
+    return {"keyframes": res.keyframes, "loop_edges": [list(e) for e in res.loop_edges],
+            "points": int(res.points.shape[0]), "rmse": res.rmse,
+            "centre_err_over_radius_mean": float(err.mean() / SLAM_RADIUS),
+            "centre_err_over_radius_max": float(err.max() / SLAM_RADIUS)}
+
+
+def dense_level_counts(shape, levels, pyr_impl):
+    """The launches dense_disparity makes on the card: both pyramids (K2,
+    one call each, where the config's pyr_impl is 'auto'; its default
+    'poly' is the plain pyramid), K1 at the coarsest level, then per finer
+    level K3 where the coarse flow is exactly half the level, else K4."""
+    shapes = [tuple(shape)]
+    for _ in range(levels - 1):
+        shapes.append(tuple((n + 1) // 2 for n in shapes[-1]))
+    k3 = [f for f, c in zip(shapes[:-1], shapes[1:]) if (2 * c[0], 2 * c[1]) == f]
+    return {"oft_pyramid": 2 if pyr_impl == "auto" else 0, "oft_lk": 1,
+            "oft_pyrup_warp_lk": len(k3), "oft_warp_lk": levels - 1 - len(k3)}, k3
+
+
+def phase_slam(device):
+    """Phase 14: the mapper. Returns (summary, launch counts of (a)'s card
+    run, launch counts of (c)'s dense_disparity, K3's rows at C = 12)."""
+    import pathlib
+
+    import torch
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.config import FlowConfig
+    from optical_flow_tpu_torch.kernels.warp_lk_kernel import pyrup_warp_lk_cuda, pyrup_warp_lk_plain
+    from optical_flow_tpu_torch.ops.pyramid import max_pyramid_levels, pyr_up_cols_first
+    from optical_flow_tpu_torch.ops.warp import symmetric_warp
+    from optical_flow_tpu_torch.slam import dense_disparity, incremental_slam
+    from optical_flow_tpu_torch.utils.interop import load_tum_trajectory
+    from optical_flow_tpu_torch.utils.profiling import Cost, kernel_cost, stage_roofline, time_use_once
+
+    out = {}
+    h, w = SLAM_HW
+
+    # (a) the monocular loop, every frame a keyframe candidate, card and CPU
+    frames, centres = render_slam_loop()
+    card_frames = [torch.from_numpy(f).to(device) for f in frames]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = incremental_slam(card_frames, SLAM_FOCAL, **SLAM_KW)
+    torch.cuda.synchronize()
+    card_sec = time.perf_counter() - t0
+    slam_counts = kernels.launch_counts()
+    t0 = time.perf_counter()
+    cpu = incremental_slam(frames, SLAM_FOCAL, device="cpu", **SLAM_KW)
+    cpu_sec = time.perf_counter() - t0
+    res = {"launches": slam_counts, "first_call_s": {"card": card_sec, "cpu": cpu_sec},
+           **compare_slam("incremental_slam", card, cpu, centres, True),
+           "card": slam_summary(card, centres, True), "cpu": slam_summary(cpu, centres, True)}
+    # K2: each frame's tracking pyramid once, then both pyramids of every
+    # verified candidate (up to 3 of the 5 closest pairs >= 6 keyframes
+    # apart) and of every accepted loop's Sim(3) measurement
+    K = len(card.keyframes)
+    pairs = sum(K - d for d in range(SLAM_KW["loop_min_separation"], K))
+    want = SLAM_FRAMES + 2 * min(3, pairs) + 2 * len(card.loop_edges)
+    check_counts("incremental_slam", slam_counts, {"oft_pyramid": want})
+    c = res["card"]
+    if not (c["centre_err_over_radius_mean"] < 0.05 / 0.12 and c["centre_err_over_radius_max"]
+            < 0.10 / 0.12 and card.keyframes[-1] == SLAM_FRAMES - 1 and card.rmse < 5.0
+            and any(j - i >= 6 for i, j, _ in card.loop_edges)):
+        raise AssertionError(f"incremental_slam against the truth: {res}")
+    out["a"] = res
+    log(f"[14 a incremental_slam] {json.dumps(res)}")
+
+    # (b) the stereo rig on the same loop: a metric map, no scale fit
+    pairs_np, s_centres = render_stereo_loop()
+    pairs_card = [tuple(torch.from_numpy(x).to(device) for x in p) for p in pairs_np]
+    skw = dict(stereo_baseline=SLAM_BASELINE, loop_min_separation=20, min_tracks=40, window=8)
+    st_card = incremental_slam(pairs_card, SLAM_FOCAL, **skw)
+    st_cpu = incremental_slam(pairs_np, SLAM_FOCAL, device="cpu", **skw)
+    res = {**compare_slam("stereo incremental_slam", st_card, st_cpu, s_centres, False),
+           "card": slam_summary(st_card, s_centres, False),
+           "cpu": slam_summary(st_cpu, s_centres, False),
+           "median_depth": float(np.median(st_card.points[:, 2]))}
+    c = res["card"]
+    # tests/test_stereo_slam.py:132-155 in the loop radius' units
+    if not (c["centre_err_over_radius_mean"] < 0.05 / 0.12 and c["centre_err_over_radius_max"]
+            < 0.10 / 0.12 and st_card.keyframes == list(range(SLAM_FRAMES))
+            and 3.0 < res["median_depth"] < 12.0 and st_card.rmse < 5.0):
+        raise AssertionError(f"stereo incremental_slam against the truth: {res}")
+    out["b"] = res
+    log(f"[14 b stereo incremental_slam] {json.dumps(res)}")
+
+    # (c) dense disparity on one rig pair: K1 and K3 at C = 12
+    left, right, true_disp = render_textured_rig()
+    lt, rt = (torch.from_numpy(x).to(device) for x in (left, right))
+    levels = max_pyramid_levels(SLAM_HW)
+    want, k3_shapes = dense_level_counts(SLAM_HW, levels, FlowConfig().pyr_impl)
+    kernels.reset_launch_counts()
+    disp, valid = dense_disparity(lt, rt)
+    torch.cuda.synchronize()
+    stereo_counts = kernels.launch_counts()
+    check_counts("dense_disparity", stereo_counts, want)
+    plain, plain_valid = dense_disparity(lt, rt, config=FlowConfig(mode="corrected", warp_clamp=24.0,
+                                                                   impl="torch"))
+    d = (disp - plain).abs().flatten()
+    m = np.zeros(SLAM_HW, bool)
+    m[20:-20, 20:-60] = True  # outside the warp's boundary band, as the test
+    v = valid.cpu().numpy()
+    err = np.abs(disp.cpu().numpy() - true_disp)[v & m]
+    res = {"launches": stereo_counts, "levels": levels,
+           "vs_plain_median_px": float(d.median()), "vs_plain_q99_px": float(torch.quantile(d, 0.99)),
+           "vs_plain_max_px": float(d.max()),
+           "valid_equal_share": float((valid == plain_valid).double().mean()),
+           "valid_share": float(v[m].mean()), "median_err_px": float(np.median(err))}
+    if not (res["vs_plain_median_px"] < 1e-3 and res["vs_plain_q99_px"] < 0.02
+            and res["valid_share"] > 0.85 and res["median_err_px"] < 1.5):
+        raise AssertionError(f"dense_disparity: {res}")
+    # K3 at C = 12 at each of its shapes: bit for bit with its plain version
+    # on the well-conditioned pixels, device time on use-once inputs, bound
+    rng = np.random.RandomState(SEED + 14)
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    kw = dict(max_disp=12, clamp=24.0)
+    ranges = [(0.0, 1.0)] * 2 + [(-12.0, 12.0)] * 2
+    k3_rows = []
+    for H, W in k3_shapes:
+        a, b = (torch.from_numpy(rng.rand(H, W).astype(np.float32)).to(device) for _ in range(2))
+        uc, vc = (torch.from_numpy(f).to(device) for f in smooth_flow(rng, (H // 2, W // 2), 18.0))
+        got, ref = pyrup_warp_lk_cuda(a, b, uc, vc, **kw), pyrup_warp_lk_plain(a, b, uc, vc, **kw)
+        upu, upv = 2.0 * pyr_up_cols_first(uc), 2.0 * pyr_up_cols_first(vc)
+        mask = well_conditioned(*symmetric_warp(a, b, -upu.clamp(-24.0, 24.0), -upv.clamp(-24.0, 24.0),
+                                                quantize=True, impl="shift_sep", max_disp=12))
+        e = max(masked_err(got[0], ref[0], mask), masked_err(got[1], ref[1], mask))
+        unmasked = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+        if not e <= ATOL_WARP_LK:
+            raise AssertionError(f"K3 at C = 12, {H}x{W}: max|err| {e:.3g}")
+        sets = [tuple(torch.empty(x.shape, device=device).uniform_(lo, hi, generator=gen)
+                      for x, (lo, hi) in zip((a, b, uc, vc), ranges)) for _ in range(USE_ONCE_SETS + 1)]
+        dev_ms = time_use_once(lambda *x: pyrup_warp_lk_cuda(*x, **kw), sets, device)
+        ms, pms = time_pair(lambda: pyrup_warp_lk_plain(a, b, uc, vc, **kw),
+                            lambda: pyrup_warp_lk_cuda(a, b, uc, vc, **kw), 20)
+        cost = kernel_cost("pyrup_warp_lk", [a, b, uc, vc], list(got))
+        k3_rows.append({"shape": [H, W], "max_disp": 12, "run": "stereo", "max_abs_err": e,
+                        "max_abs_err_unmasked": unmasked, "well_conditioned_share":
+                        float(mask.double().mean()), "device_ms": dev_ms, "ms": ms,
+                        "plain_ms": pms, "library_ms": None,
+                        "bound_ms": stage_roofline(Cost(cost.bytes, cost.ops))["bound_ms"],
+                        "bytes": cost.bytes, "ops": cost.ops})
+        log(f"  pyrup_warp_lk C=12 {H}x{W}: max|err| {e:.3g}, unmasked {unmasked:.3g}, device "
+            f"{dev_ms * 1e3:.2f} us, kernel {ms * 1e3:.1f} us, plain {pms * 1e3:.1f} us, bound "
+            f"{k3_rows[-1]['bound_ms'] * 1e3:.2f} us")
+    res["k3_c12"] = k3_rows
+    out["c"] = res
+    log(f"[14 c dense_disparity] {json.dumps(res)}")
+
+    # (d) the CLI on (a)'s frames written raw (BGR24, B = G = R)
+    root = pathlib.Path(__file__).resolve().parent
+    raw = root / "chiprun_out" / "phase14_frames.raw"
+    tum = root / "chiprun_out" / "phase14_trajectory.tum"
+    raw.parent.mkdir(exist_ok=True)
+    np.stack([np.repeat(f[..., None], 3, axis=-1) for f in frames]).tofile(raw)
+    try:
+        cmd = [sys.executable, "-m", "optical_flow_tpu_torch", "slam", "--input",
+               f"pipe:{w}x{h}:{raw}", "--frames", str(SLAM_FRAMES), "--focal", str(SLAM_FOCAL),
+               "--kf-disparity", "0"]
+        cli = subprocess.run(cmd + ["--out-tum", str(tum)], cwd=root, capture_output=True,
+                             text=True, timeout=600)
+        imu = subprocess.run(cmd + ["--imu", "log.npz"], cwd=root, capture_output=True, text=True,
+                             timeout=300)
+    finally:
+        raw.unlink()
+    lines = cli.stdout.splitlines()
+    if cli.returncode != 0 or not lines or not lines[0].startswith("keyframes "):
+        raise AssertionError(f"slam CLI: rc {cli.returncode}\n{cli.stdout}\n{cli.stderr[-2000:]}")
+    ts, _, _ = load_tum_trajectory(tum)
+    n_kf = int(lines[0].split()[1])
+    if len(ts) != n_kf or imu.returncode == 0:
+        raise AssertionError(f"slam CLI: {len(ts)} TUM poses for {n_kf} keyframes; --imu rc "
+                             f"{imu.returncode}")
+    out["d"] = {"rc": cli.returncode, "first_line": lines[0], "tum_poses": len(ts),
+                "imu_rc": imu.returncode, "imu_message": imu.stderr.strip().splitlines()[-1]}
+    log(f"[14 d slam CLI] {json.dumps(out['d'])}")
+
+    # (e) times on the card, after the checks
+    calls = {
+        "incremental_slam_720p_10": (lambda: incremental_slam(card_frames, SLAM_FOCAL, **SLAM_KW), 2),
+        "stereo_incremental_slam_720p_10": (lambda: incremental_slam(pairs_card, SLAM_FOCAL, **skw), 1),
+        "dense_disparity_720p": (lambda: dense_disparity(lt, rt), TIMED_CALLS),
+    }
+    out["e"] = {}
+    for name, (fn, n) in calls.items():
+        out["e"][name] = call_profile(fn, n=n)
+        log(f"[14 e time] {name}: {json.dumps(out['e'][name])}")
+    for name, res_ in (("incremental_slam_720p_10", card), ("stereo_incremental_slam_720p_10", st_card)):
+        e = out["e"][name]
+        e["keyframes"] = len(res_.keyframes)
+        e["ms_per_keyframe"] = e["ms_per_call"] / len(res_.keyframes)
+        log(f"  {name}: {e['ms_per_keyframe']:.1f} ms per keyframe ({len(res_.keyframes)} keyframes)")
+    return out, slam_counts, stereo_counts, k3_rows
+
+
 def pyramid_graph_capture(device):
     """Whether the pyramid's grids (programmatic dependent launch between its
     levels) can be captured into a CUDA graph and replayed on new input
@@ -2267,6 +2621,10 @@ def main() -> int:
     t13 = time.perf_counter()
     sfm, sfm_counts = phase_sfm(device)
     log(f"[13 sfm] structure from motion passes ({time.perf_counter() - t13:.1f} s)")
+    t14 = time.perf_counter()
+    mapper, slam_counts, stereo_counts, k3_c12 = phase_slam(device)
+    log(f"[14 slam] the mapper passes ({time.perf_counter() - t14:.1f} s)")
+    per_kernel["pyrup_warp_lk"]["by_shape"] += k3_c12
     del stream_results, ref_results
     per_kernel["pyramid"]["graph_capture"] = pyramid_graph_capture(device)
     log(f"  pyramid graph capture: {json.dumps(per_kernel['pyramid']['graph_capture'])}")
@@ -2313,7 +2671,8 @@ def main() -> int:
     runs = {"stream": sl["launches"], "controller": ctl["launches"],
             "mesh_stream": msl["launches"], "mesh_controller": mctl["launches"],
             "reference": ref["launches"], "probes": prb["launches"],
-            "track": track_counts, "shift_controller": shift_counts, "sfm": sfm_counts}
+            "track": track_counts, "shift_controller": shift_counts, "sfm": sfm_counts,
+            "slam": slam_counts, "stereo": stereo_counts}
     missing = [name for name, (entries, run, _, _) in meta.items()
                if any(runs[run][e] == 0 for e in entries)]
     if missing:
@@ -2326,6 +2685,16 @@ def main() -> int:
     # phase 13's run: K2 builds both tracking pyramids of every link
     if runs["sfm"]["oft_pyramid"] != 2 * (SFM_FRAMES - 1):
         raise AssertionError(f"phase 13 launched K2 {runs['sfm']['oft_pyramid']} times")
+    # phase 14's runs: K2 builds every tracking pyramid of the mapper (its
+    # exact count is asserted in the phase: each frame once, then the loop
+    # closures'), K1 and K3 (at C = 12) solve the dense disparity
+    want_k2 = SLAM_FRAMES + 2 * min(3, sum(len(mapper["a"]["card"]["keyframes"]) - d for d in range(
+        SLAM_KW["loop_min_separation"], len(mapper["a"]["card"]["keyframes"])))) + 2 * len(
+        mapper["a"]["card"]["loop_edges"])
+    if not (runs["slam"]["oft_pyramid"] == want_k2 and runs["stereo"]["oft_lk"] > 0
+            and runs["stereo"]["oft_pyrup_warp_lk"] > 0):
+        raise AssertionError(f"phase 14 launched K2 {runs['slam']['oft_pyramid']} times (want "
+                             f"{want_k2}), dense disparity {runs['stereo']}")
 
     # the probes' own rows: the first variant's time; all variants beside it
     first = {"interleave": "cols_float2", "colsum": "smem", "mul_add_chain": "f32"}

@@ -3,7 +3,8 @@
 The functions read the JAX objects by field name and import nothing of JAX,
 so they take the dataclasses of ``optical_flow_tpu.config``, of
 ``optical_flow_tpu.track``, ``optical_flow_tpu.flow.horn_schunck`` and
-``optical_flow_tpu.slam.epipolar``, the numpy dict of
+``optical_flow_tpu.slam.epipolar``, the pose graphs and ``SlamResult`` of
+``optical_flow_tpu.slam``, the numpy dict of
 ``optical_flow_tpu.pipeline.VideoPipeline.state()``, a
 ``jax.sharding.Mesh`` (through its ``shape``) and a
 ``optical_flow_tpu.slam.BAProblem`` (its arrays read through numpy) as they
@@ -30,6 +31,8 @@ from optical_flow_tpu_torch.flow.horn_schunck import HornSchunckConfig
 from optical_flow_tpu_torch.parallel.mesh import AXIS_COLS, AXIS_FRAMES, AXIS_ROWS, FlowMesh, flow_mesh
 from optical_flow_tpu_torch.slam.ba import BAProblem
 from optical_flow_tpu_torch.slam.epipolar import EssentialRansacConfig
+from optical_flow_tpu_torch.slam.incremental import SlamResult
+from optical_flow_tpu_torch.slam.pose_graph import PoseGraph, Sim3PoseGraph
 from optical_flow_tpu_torch.track.pose import RansacConfig
 from optical_flow_tpu_torch.track.sparse_lk import SparseLKConfig
 
@@ -134,4 +137,44 @@ def ba_problem_from_jax(problem) -> BAProblem:
     return BAProblem(
         t(problem.cams), t(problem.points), t(problem.cam_idx), t(problem.pt_idx),
         t(problem.obs), float(problem.focal), t(problem.weight), t(problem.baseline),
+    )
+
+
+def _host_list(xs):
+    return [np.array(x) for x in xs]
+
+
+def pose_graph_from_jax(graph) -> PoseGraph:
+    """A JAX PoseGraph -> the port's: nodes and edges carried as numpy (the
+    same graph for both optimizers)."""
+    return PoseGraph(
+        Rs=np.array(graph.Rs), ts=np.array(graph.ts), ei=[int(i) for i in graph.ei],
+        ej=[int(j) for j in graph.ej], Rm=_host_list(graph.Rm), tm=_host_list(graph.tm),
+        wt=[float(w) for w in graph.wt],
+    )
+
+
+def sim3_pose_graph_from_jax(graph) -> Sim3PoseGraph:
+    """A JAX Sim3PoseGraph -> the port's (numpy nodes and edges)."""
+    return Sim3PoseGraph(
+        ss=np.array(graph.ss), Rs=np.array(graph.Rs), ts=np.array(graph.ts),
+        ei=[int(i) for i in graph.ei], ej=[int(j) for j in graph.ej],
+        sm=[float(s) for s in graph.sm], Rm=_host_list(graph.Rm), tm=_host_list(graph.tm),
+        wt=[float(w) for w in graph.wt],
+    )
+
+
+def slam_result_from_jax(result) -> SlamResult:
+    """A JAX SlamResult -> the port's (numpy arrays, as both hold them)."""
+
+    def a(x):
+        return None if x is None else np.array(x)
+
+    return SlamResult(
+        poses=np.array(result.poses), trans=np.array(result.trans),
+        points=np.array(result.points), keyframes=[int(k) for k in result.keyframes],
+        loop_edges=[tuple(int(v) for v in e) for e in result.loop_edges],
+        rmse=None if result.rmse is None else float(result.rmse),
+        cam_idx=a(result.cam_idx), pt_idx=a(result.pt_idx), obs=a(result.obs),
+        obs_baseline=a(result.obs_baseline),
     )

@@ -1,18 +1,27 @@
-"""Structure from motion and mapping (port of optical_flow_tpu/slam/, the
-first slice): sparse tracks -> relative pose -> 3D map -> bundle adjustment.
+"""Structure from motion and mapping (port of optical_flow_tpu/slam/): sparse
+tracks -> relative pose -> 3D map -> bundle adjustment -> loop closure.
 
 Layer map, in dependency order:
-  epipolar.py  essential-matrix RANSAC (batched 8-point, host 5-point),
-               pose recovery, Gauss-Newton pose refinement, triangulation
-  pnp.py       absolute pose by DLT, and its RANSAC
-  ba.py        Schur-complement Gauss-Newton bundle adjustment on one device
-  window.py    sliding-window BA with track retirement (WindowedBA)
-  frontend.py  two_view_reconstruct and multi_view_reconstruct over the
-               sparse tracker of track/ (kernel K2 builds its pyramids)
+  epipolar.py     essential-matrix RANSAC (batched 8-point, host 5-point),
+                  pose recovery, Gauss-Newton pose refinement, triangulation
+  pnp.py          absolute pose by DLT, and its RANSAC
+  ba.py           Schur-complement Gauss-Newton bundle adjustment on one
+                  device
+  window.py       sliding-window BA with track retirement (WindowedBA)
+  frontend.py     two_view_reconstruct and multi_view_reconstruct over the
+                  sparse tracker of track/ (kernel K2 builds its pyramids)
+  descriptors.py  normalized patch descriptors: the tracks' drift gate and
+                  occlusion revival
+  pose_graph.py   SE(3) and Sim(3) pose graphs (float64 Gauss-Newton), place
+                  descriptors, loop verification, relocalization, the
+                  Umeyama-measured loop similarity
+  stereo.py       sparse stereo matching (K2) and dense disparity through
+                  coarse_to_fine (K1 and K3 at C = 12 on the card)
+  incremental.py  incremental_slam: the mapper over all of the above, the
+                  engine of ``python -m optical_flow_tpu_torch slam``
 
-Not ported yet, in the order they follow: descriptors, pose_graph,
-incremental (and the CLI's slam subcommand), then stereo, imu, vi_ba, and
-sharded_bundle_adjust with the mesh over several cards.
+Not ported yet: imu, vi_ba (and ``slam --imu``), and sharded_bundle_adjust
+with the mesh over several cards.
 """
 
 from optical_flow_tpu_torch.slam.ba import (
@@ -20,6 +29,12 @@ from optical_flow_tpu_torch.slam.ba import (
     bundle_adjust,
     project,
     reprojection_rmse,
+)
+from optical_flow_tpu_torch.slam.descriptors import (
+    match_descriptors,
+    ncc_scores,
+    patch_descriptors,
+    verify_tracks,
 )
 from optical_flow_tpu_torch.slam.epipolar import (
     EssentialRansacConfig,
@@ -33,15 +48,44 @@ from optical_flow_tpu_torch.slam.epipolar import (
     triangulate,
 )
 from optical_flow_tpu_torch.slam.frontend import TwoViewReconstruction, two_view_reconstruct
+from optical_flow_tpu_torch.slam.incremental import SlamResult, incremental_slam
 from optical_flow_tpu_torch.slam.pnp import pnp_dlt, pnp_ransac
+from optical_flow_tpu_torch.slam.pose_graph import (
+    PoseGraph,
+    Sim3PoseGraph,
+    measure_loop_sim3,
+    place_descriptor,
+    propose_loop_candidates,
+    relative_pose,
+    relocalize,
+    thumbnail_descriptor,
+    umeyama_alignment,
+    verify_loop_closure,
+)
+from optical_flow_tpu_torch.slam.stereo import (
+    dense_depth,
+    dense_disparity,
+    split_sbs,
+    stereo_backproject,
+    stereo_match,
+)
 from optical_flow_tpu_torch.slam.window import WindowedBA
 
 __all__ = [
+    "dense_depth",
+    "dense_disparity",
+    "split_sbs",
+    "stereo_backproject",
+    "stereo_match",
     "WindowedBA",
     "BAProblem",
     "bundle_adjust",
     "project",
     "reprojection_rmse",
+    "match_descriptors",
+    "ncc_scores",
+    "patch_descriptors",
+    "verify_tracks",
     "EssentialRansacConfig",
     "estimate_essential",
     "five_point",
@@ -52,7 +96,19 @@ __all__ = [
     "refine_pose",
     "triangulate",
     "TwoViewReconstruction",
+    "SlamResult",
+    "incremental_slam",
     "two_view_reconstruct",
     "pnp_dlt",
     "pnp_ransac",
+    "PoseGraph",
+    "Sim3PoseGraph",
+    "measure_loop_sim3",
+    "place_descriptor",
+    "propose_loop_candidates",
+    "relative_pose",
+    "relocalize",
+    "thumbnail_descriptor",
+    "umeyama_alignment",
+    "verify_loop_closure",
 ]

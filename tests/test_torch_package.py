@@ -34,6 +34,9 @@ def test_import_pulls_in_no_jax():
         "from optical_flow_tpu_torch.pipeline.video import VideoPipeline, replay_video\n"
         "import optical_flow_tpu_torch.slam, optical_flow_tpu_torch.slam.frontend\n"
         "import optical_flow_tpu_torch.slam.window, optical_flow_tpu_torch.slam.pnp\n"
+        "import optical_flow_tpu_torch.slam.descriptors, optical_flow_tpu_torch.slam.pose_graph\n"
+        "import optical_flow_tpu_torch.slam.stereo, optical_flow_tpu_torch.slam.incremental\n"
+        "import optical_flow_tpu_torch.utils.interop\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'optical_flow_tpu' or m.startswith('optical_flow_tpu.'))\n"
         "assert not bad, bad\n"
@@ -140,13 +143,21 @@ def test_exports_cover_the_jax_package():
         assert all(hasattr(t, name) for name in t.__all__)
     assert optical_flow_tpu_torch.track.track_features is optical_flow_tpu_torch.track.sparse_lk.track_features
     # slam/ is ported in slices: what the port exports, it exports under
-    # JAX's names, and the modules of the first slice are all there
+    # JAX's names; what it lacks is exactly the visual-inertial slice (imu,
+    # vi_ba) and the bundle adjustment sharded over several cards
     import optical_flow_tpu.slam
     import optical_flow_tpu_torch.slam
 
     assert set(optical_flow_tpu_torch.slam.__all__) <= set(optical_flow_tpu.slam.__all__)
     assert all(hasattr(optical_flow_tpu_torch.slam, name) for name in optical_flow_tpu_torch.slam.__all__)
-    for module in ("epipolar", "pnp", "ba", "window", "frontend"):
+    missing = set(optical_flow_tpu.slam.__all__) - set(optical_flow_tpu_torch.slam.__all__)
+    assert missing == {
+        "preintegrate", "visual_inertial_alignment", "VIBAProblem", "group_imu_by_keyframes",
+        "refine_slam_with_imu", "refine_with_imu", "sharded_vi_bundle_adjust",
+        "vi_bundle_adjust", "vi_problem_from_ba", "sharded_bundle_adjust",
+    }, sorted(missing)
+    for module in ("epipolar", "pnp", "ba", "window", "frontend", "descriptors", "pose_graph",
+                   "stereo", "incremental"):
         assert (PKG / "slam" / f"{module}.py").exists()
 
 

@@ -293,6 +293,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda **kw: slam.WindowedBA(**kw),
         lambda **kw: slam.two_view_reconstruct(gray, gray, 100.0, **kw),
         lambda **kw: slam.frontend.multi_view_reconstruct([gray] * 3, 100.0, **kw),
+        # the mapper: frames, images and graphs given as host data
+        lambda **kw: slam.incremental_slam([gray] * 3, 100.0, **kw),
+        lambda **kw: slam.dense_disparity(gray, gray, **kw),
+        lambda **kw: slam.stereo_match(gray, gray, pts, **kw),
+        lambda **kw: slam.verify_loop_closure(gray, gray, 100.0, 16.0, 12.0, **kw),
+        lambda **kw: slam.relocalize(gray, [gray], [pts], X, 100.0, 16.0, 12.0, **kw),
+        lambda **kw: slam.PoseGraph.from_odometry(np.stack([np.eye(3)] * 2),
+                                                  np.zeros((2, 3))).optimize(iters=1, **kw),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
