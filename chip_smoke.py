@@ -2,8 +2,9 @@
 """Drive the PyTorch port's streaming 1080^2 flow paths (the fast preset,
 unsharded and on a 2x2 tile mesh, and the reference-parity default
 configuration), the sparse tracker, Horn-Schunck, the exact 'shift' warp,
-structure from motion and the mapper (incremental SLAM, stereo, the slam
-CLI) once on an NVIDIA GPU, and run the probes S2-S4.
+structure from motion, the mapper (incremental SLAM, stereo, the slam CLI)
+and the visual-inertial back end (IMU preintegration, VI-BA, slam --imu)
+once on an NVIDIA GPU, and run the probes S2-S4.
 
     python3 chip_smoke.py
 
@@ -122,9 +123,32 @@ Phases, each printing one line (any failure raises and exits non-zero):
      C = 12 at each of its shapes bit for bit with its plain version, timed
      on use-once inputs and in turns with it; (d) `python -m
      optical_flow_tpu_torch slam` on (a)'s frames as raw BGR (pipe:): exit
-     0, the keyframe lines, a TUM file that reads back, and --imu refused;
-     (e) ms per call and per keyframe of each run, device events, busy ms
-     and idle share.
+     0, the keyframe lines, a TUM file that reads back; (e) ms per call and
+     per keyframe of each run, device events, busy ms and idle share;
+ 15. the visual-inertial back end (slam/imu.py, slam/vi_ba.py): (a)
+     vi_bundle_adjust in float32 on tests/test_vi_ba.py's trajectory at the
+     size of 13 (c) (50 keyframes 0.5 s apart, an exact 200 Hz IMU log,
+     10,000 points each seen by 6 consecutive keyframes: 60,000
+     observations), from test_vi_ba_converges_from_perturbed_init's start,
+     12 iterations, 9-DOF and 15-DOF (bias states on the clean log), on the
+     card and on the CPU: the test's bars (mean centre error < 5e-3 m,
+     |scale - 1| < 0.01, velocity error < 0.03, the history falls; bias
+     deltas < 5e-3), card within 1e-3 m of the CPU and 1e-4 of scale; TF32
+     must be off inside the solve with the global setting at TF32, and the
+     scale reached with TF32 on inside it is reported; (b)
+     refine_slam_with_imu on 14 (a)'s monocular map and 14 (b)'s stereo map
+     with an IMU log of the loop (200 Hz, zero gyro, accel a - g), card and
+     CPU: metric centres with no scale fit within tests/test_vi_ba.py's bars
+     in loop radii (mean < 0.05/0.12, span ratio within 0.15 of 1), card
+     within 1e-3 radii of the CPU, the stereo map not rescaled; (c) `slam
+     --imu` on 14 (a)'s frames with --no-accel-bias and --out, in process:
+     the VI and METRIC lines, the saved trajectory within (b)'s bars, K2
+     exactly as 14 (a) counts it; then as a command with --imu-bias-states:
+     exit 0 and its bias-states line; (d) the IMU functions and VI-BA launch
+     no kernel; (e) ms per call, device events, busy ms and idle share of
+     preintegrate, its bias Jacobians, estimate_gyro_bias,
+     visual_inertial_alignment_with_bias, vi_bundle_adjust at 9 and 15 DOF
+     and refine_slam_with_imu.
 Phase 3 also holds S1 at the three upsamples of a 1080^2 frame, and over
 a ragged sweep at odd and even coarse widths on both sides of its
 launcher's strip rule, bit for bit, and K1 at every level of the reference path, and times the one
@@ -132,8 +156,8 @@ PyTorch call that computes K2's and S1's function (cuDNN convolutions,
 TF32 off; the pyramid's: one a level). At the end, whether the pyramid's
 grids (one a level, programmatic dependent launch) can be captured into a
 CUDA graph (reported, not required). Launch counters are reset just before
-the runs of phases 4, 5, 7, 8, 9, 10, 11 (c), 12 (a), 12 (d), 13 (a), 14 (a)
-and 14 (c) and read just after each. Then one
+the runs of phases 4, 5, 7, 8, 9, 10, 11 (c), 12 (a), 12 (d), 13 (a), 14 (a),
+14 (c), 15 (a) and (b) together, and 15 (c), and read just after each. Then one
 JSON line with the kernels (each with its least time on the card, from
 utils/profiling's byte and operation model against the published H100
 peaks, its time at the rates phase 10 sustained, its device time on
@@ -216,7 +240,9 @@ RUNS = {"stream": "VideoPipeline.push (phase 4)",
         "shift_controller": "coarse_to_fine warp_impl='shift' level_iters=2 (phase 12 d)",
         "sfm": "multi_view_reconstruct, 8 frames of 720x1280 (phase 13 a)",
         "slam": "incremental_slam, 10 frames of 720x1280 (phase 14 a)",
-        "stereo": "dense_disparity, one 720x1280 rig pair, C = 12 (phase 14 c)"}
+        "stereo": "dense_disparity, one 720x1280 rig pair, C = 12 (phase 14 c)",
+        "vi": "the IMU functions and vi_bundle_adjust, 9 and 15 DOF (phase 15 a, b)",
+        "slam_imu": "slam --imu, 10 frames of 720x1280 (phase 15 c)"}
 PROFILE_WARMUP, PROFILE_FRAMES = 5, 40
 REFERENCE_PROFILE_FRAMES = 20
 HOST_WARM, HOST_TIMED = 5, 30  # phase 11 (e): frames before and inside the timed window
@@ -260,6 +286,14 @@ SLAM_FOCAL = 400.0 / SLAM_SCALE
 SLAM_BASELINE = 0.3 * SLAM_SCALE
 SLAM_RADIUS = 0.12 * SLAM_SCALE
 SLAM_KW = dict(loop_min_separation=6, loop_min_inliers=30, min_tracks=40, window=8)
+# phase 15: tests/test_vi_ba.py's trajectory (_traj) at the size of phase 13
+# (c)'s BA: 50 keyframes 0.5 s apart, an exact 200 Hz IMU log (49 intervals of
+# 100 samples), 10,000 points at depths 3-6, each seen by 6 consecutive
+# keyframes (60,000 observations at focal 500); phase 14's loop takes one
+# period of IMU_PERIOD s, as in tests/test_vi_ba.py's SLAM tests
+VI_KEYFRAMES, VI_DT_KF, VI_RATE, VI_POINTS, VI_TRACK = 50, 0.5, 200.0, 10_000, 6
+IMU_PERIOD = 6.0
+G_W = np.array([0.0, -9.81, 0.0])
 
 
 def log(msg: str) -> None:
@@ -2259,12 +2293,8 @@ def phase_slam(device):
     res = {"launches": slam_counts, "first_call_s": {"card": card_sec, "cpu": cpu_sec},
            **compare_slam("incremental_slam", card, cpu, centres, True),
            "card": slam_summary(card, centres, True), "cpu": slam_summary(cpu, centres, True)}
-    # K2: each frame's tracking pyramid once, then both pyramids of every
-    # verified candidate (up to 3 of the 5 closest pairs >= 6 keyframes
-    # apart) and of every accepted loop's Sim(3) measurement
-    K = len(card.keyframes)
-    pairs = sum(K - d for d in range(SLAM_KW["loop_min_separation"], K))
-    want = SLAM_FRAMES + 2 * min(3, pairs) + 2 * len(card.loop_edges)
+    want = mapper_k2(SLAM_FRAMES, len(card.keyframes), len(card.loop_edges),
+                     SLAM_KW["loop_min_separation"])
     check_counts("incremental_slam", slam_counts, {"oft_pyramid": want})
     c = res["card"]
     if not (c["centre_err_over_radius_mean"] < 0.05 / 0.12 and c["centre_err_over_radius_max"]
@@ -2367,8 +2397,6 @@ def phase_slam(device):
                "--kf-disparity", "0"]
         cli = subprocess.run(cmd + ["--out-tum", str(tum)], cwd=root, capture_output=True,
                              text=True, timeout=600)
-        imu = subprocess.run(cmd + ["--imu", "log.npz"], cwd=root, capture_output=True, text=True,
-                             timeout=300)
     finally:
         raw.unlink()
     lines = cli.stdout.splitlines()
@@ -2376,11 +2404,9 @@ def phase_slam(device):
         raise AssertionError(f"slam CLI: rc {cli.returncode}\n{cli.stdout}\n{cli.stderr[-2000:]}")
     ts, _, _ = load_tum_trajectory(tum)
     n_kf = int(lines[0].split()[1])
-    if len(ts) != n_kf or imu.returncode == 0:
-        raise AssertionError(f"slam CLI: {len(ts)} TUM poses for {n_kf} keyframes; --imu rc "
-                             f"{imu.returncode}")
-    out["d"] = {"rc": cli.returncode, "first_line": lines[0], "tum_poses": len(ts),
-                "imu_rc": imu.returncode, "imu_message": imu.stderr.strip().splitlines()[-1]}
+    if len(ts) != n_kf:
+        raise AssertionError(f"slam CLI: {len(ts)} TUM poses for {n_kf} keyframes")
+    out["d"] = {"rc": cli.returncode, "first_line": lines[0], "tum_poses": len(ts)}
     log(f"[14 d slam CLI] {json.dumps(out['d'])}")
 
     # (e) times on the card, after the checks
@@ -2398,7 +2424,344 @@ def phase_slam(device):
         e["keyframes"] = len(res_.keyframes)
         e["ms_per_keyframe"] = e["ms_per_call"] / len(res_.keyframes)
         log(f"  {name}: {e['ms_per_keyframe']:.1f} ms per keyframe ({len(res_.keyframes)} keyframes)")
-    return out, slam_counts, stereo_counts, k3_rows
+    maps = {"mono": card, "stereo": st_card, "frames": frames, "centres": centres,
+            "stereo_centres": s_centres}
+    return out, slam_counts, stereo_counts, k3_rows, maps
+
+
+# ------------------------------------------------ phase 15: visual-inertial
+
+
+def mapper_k2(n_frames, n_keyframes, n_loops, min_separation):
+    """K2 launches of one incremental_slam run: each frame's tracking pyramid
+    once, then both pyramids of every verified loop candidate (up to 3 of the
+    5 closest pairs >= min_separation keyframes apart) and of every accepted
+    loop's Sim(3) measurement."""
+    pairs = sum(n_keyframes - d for d in range(min_separation, n_keyframes))
+    return n_frames + 2 * min(3, pairs) + 2 * n_loops
+
+
+def vi_traj(t):
+    """tests/test_vi_ba.py::_traj without cv2: camera centres, world
+    accelerations and world->cam rotations Rx(0.15 sin(2 om t + 0.5)) Ry(0.25
+    sin(om t)) of the analytic trajectory, at the times `t` (any shape)."""
+    om = 2 * np.pi / 8.0
+    r, a = 0.4, 0.1
+    t = np.asarray(t, np.float64)
+    c = np.stack([r * np.sin(om * t), a * (1 - np.cos(2 * om * t)), r * (1 - np.cos(om * t))], -1)
+    acc = np.stack([-r * om * om * np.sin(om * t), 4 * a * om * om * np.cos(2 * om * t),
+                    r * om * om * np.cos(om * t)], -1)
+    ay, ax = 0.25 * np.sin(om * t), 0.15 * np.sin(2 * om * t + 0.5)
+    one, zero = np.ones_like(t), np.zeros_like(t)
+    ry = np.stack([np.stack([np.cos(ay), zero, np.sin(ay)], -1), np.stack([zero, one, zero], -1),
+                   np.stack([-np.sin(ay), zero, np.cos(ay)], -1)], -2)
+    rx = np.stack([np.stack([one, zero, zero], -1), np.stack([zero, np.cos(ax), -np.sin(ax)], -1),
+                   np.stack([zero, np.sin(ax), np.cos(ax)], -1)], -2)
+    return c, acc, rx @ ry
+
+
+def vi_scene(C=VI_KEYFRAMES, P=VI_POINTS, seed=SEED + 15):
+    """tests/test_vi_ba.py::_make_scene at the size of phase 13 (c)'s BA:
+    C keyframes VI_DT_KF apart, P points each seen by VI_TRACK consecutive
+    keyframes (exact projections at BA_FOCAL), the exact IMU log of each
+    interval (gyro from the relative rotation of each sample period, accel
+    at its midpoint), the true velocities."""
+    import torch
+
+    from optical_flow_tpu_torch.slam.frontend import _rotmat_to_axis_angle
+    from optical_flow_tpu_torch.slam.imu import _log_so3
+
+    rng = np.random.RandomState(seed)
+    kf_t = np.arange(C) * VI_DT_KF
+    centers, _, poses = vi_traj(kf_t)
+    trans = np.einsum("kij,kj->ki", poses, -centers)
+    X = np.stack([rng.uniform(-1.2, 1.2, P), rng.uniform(-0.9, 0.9, P), rng.uniform(3.0, 6.0, P)], -1)
+    first = rng.randint(0, C - VI_TRACK + 1, size=P)
+    ci = (first[:, None] + np.arange(VI_TRACK)[None, :]).reshape(-1)
+    pi = np.repeat(np.arange(P), VI_TRACK)
+    Xc = np.einsum("mij,mj->mi", poses[ci], X[pi]) + trans[ci]
+    obs = BA_FOCAL * Xc[:, :2] / Xc[:, 2:3]
+    n, h = int(round(VI_DT_KF * VI_RATE)), 1.0 / VI_RATE
+    t0 = kf_t[:-1, None] + np.arange(n)[None, :] * h  # (C-1, n)
+    R0, R1 = vi_traj(t0)[2], vi_traj(t0 + h)[2]
+    gyro = _log_so3(torch.from_numpy(R0 @ np.swapaxes(R1, -1, -2))).numpy() / h
+    _, am, Rm = vi_traj(t0 + 0.5 * h)
+    accel = np.einsum("...ij,...j->...i", Rm, am - G_W)
+    eps = 1e-6
+    vel = (vi_traj(kf_t + eps)[0] - vi_traj(kf_t - eps)[0]) / (2 * eps)
+    cams = np.concatenate([np.stack([_rotmat_to_axis_angle(R) for R in poses]), trans], -1)
+    return {"kf_t": kf_t, "poses": poses, "trans": trans, "centers": centers, "vel": vel, "X": X,
+            "cams": cams, "cam_idx": ci, "pt_idx": pi, "obs": obs, "gyro": gyro, "accel": accel,
+            "dt": np.full((C - 1, n), h)}
+
+
+def vi_problem(sc, device, bias_jac=False, seed=7):
+    """(a)'s float32 VI problem on `device`: the start of
+    test_vi_ba_converges_from_perturbed_init (seed 7) on the scene, deltas
+    preintegrated there (with their bias Jacobians for 15-DOF states)."""
+    import torch
+
+    from optical_flow_tpu_torch.slam import BAProblem, vi_problem_from_ba
+    from optical_flow_tpu_torch.slam.imu import preintegrate, preintegrate_with_bias_jacobians
+
+    rng = np.random.RandomState(seed)
+    pert = np.concatenate([sc["cams"], sc["vel"]], -1)
+    pert[1:, :3] += rng.randn(len(pert) - 1, 3) * 0.01
+    pert[1:, 3:6] += rng.randn(len(pert) - 1, 3) * 0.02
+    pert[:, 6:9] += rng.randn(len(pert), 3) * 0.05
+    Xp = sc["X"] + rng.randn(*sc["X"].shape) * 0.02
+    J = None
+    if bias_jac:
+        dR, dv, dp, J = preintegrate_with_bias_jacobians(sc["gyro"], sc["accel"], sc["dt"],
+                                                         device=device)
+    else:
+        dR, dv, dp = preintegrate(sc["gyro"], sc["accel"], sc["dt"], device=device)
+
+    def f32(x):
+        return torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
+
+    base = BAProblem(f32(pert[:, :6]), f32(Xp), torch.from_numpy(sc["cam_idx"]).to(device),
+                     torch.from_numpy(sc["pt_idx"]).to(device), f32(sc["obs"]), BA_FOCAL)
+    return vi_problem_from_ba(base, pert[:, 6:9], dR, dv, dp, sc["dt"].sum(-1), G_W, bias_jac=J)
+
+
+def state_centres(states):
+    """Camera centres -R^T t of (C, >= 6) states (float64 on the host)."""
+    from optical_flow_tpu_torch.slam.vi_ba import states_to_poses
+
+    poses, trans = states_to_poses(states)
+    return -np.einsum("kji,kj->ki", poses, trans)
+
+
+def vi_summary(out, hist, sc):
+    """test_vi_ba_converges_from_perturbed_init's measures: mean centre
+    error (m), scale (mean |c_est| / |c_true| over the keyframes at least 0.1
+    m from the origin, where the test's ratio is defined: the loop passes
+    through it), velocity error (max, m/s), the history's first and last
+    visual mean square; bias deltas (max |.|) of 15-DOF states."""
+    st = out.states.detach().cpu().numpy()
+    est = state_centres(st)
+    far = np.linalg.norm(sc["centers"], axis=1) > 0.1
+    h = hist.cpu().numpy()
+    res = {"centre_err_mean_m": float(np.linalg.norm(est - sc["centers"], axis=1).mean()),
+           "scale": float(np.mean(np.linalg.norm(est[far], axis=1)
+                                  / np.linalg.norm(sc["centers"][far], axis=1))),
+           "vel_err_max": float(np.abs(st[:, 6:9] - sc["vel"]).max()),
+           "hist_vis_first": float(h[0, 0]), "hist_vis_last": float(h[-1, 0]),
+           "hist_imu_last": float(h[-1, 1])}
+    if st.shape[1] == 15:
+        res["bias_delta_max"] = float(np.abs(st[:, 9:15]).max())
+    return res, est
+
+
+def vi_bars(what, r):
+    if not (r["centre_err_mean_m"] < 5e-3 and abs(r["scale"] - 1.0) < 0.01
+            and r["vel_err_max"] < 0.03 and r["hist_vis_last"] < r["hist_vis_first"]
+            and r.get("bias_delta_max", 0.0) < 5e-3):
+        raise AssertionError(f"{what} against the truth: {r}")
+
+
+def loop_imu_log(rate=200.0):
+    """The IMU log of phase 14's loop (radii x SLAM_SCALE) over one period
+    of IMU_PERIOD s: zero gyro (R = I), accel a - g, as
+    tests/test_vi_ba.py::test_refine_slam_result_with_imu builds it.
+    Returns (t, gyro, accel)."""
+    om = 2 * np.pi / IMU_PERIOD
+    t = np.arange(0.0, IMU_PERIOD, 1.0 / rate)
+    acc = SLAM_SCALE * np.stack([-0.12 * om * om * np.sin(om * t), 0.08 * om * om * np.cos(om * t),
+                                 np.zeros_like(t)], -1)
+    return t, np.zeros((len(t), 3)), acc - G_W
+
+
+def metric_errors(est, keyframes, centres):
+    """Refined keyframe centres against the truth with no scale fit: (mean
+    error in loop radii, span ratio)."""
+    true = np.asarray([centres[i] for i in keyframes])
+    err = np.linalg.norm(est - true, axis=1)
+    span = np.linalg.norm(np.diff(est, axis=0), axis=1).sum() / np.linalg.norm(
+        np.diff(true, axis=0), axis=1).sum()
+    return float(err.mean() / SLAM_RADIUS), float(span)
+
+
+def phase_vi(device, maps):
+    """Phase 15: the visual-inertial back end. `maps` holds phase 14's
+    SlamResults and frames. Returns (summary, launch counts of (a) and (b),
+    launch counts of (c)'s in-process slam --imu)."""
+    import contextlib
+    import io
+    import pathlib
+
+    import torch
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.__main__ import main as cli_main
+    from optical_flow_tpu_torch.slam import imu, refine_slam_with_imu, vi_ba, vi_bundle_adjust
+
+    out = {}
+    sc = vi_scene()
+    iters, lam = 12, 1e-4
+
+    # (a) VI-BA at 60,000 observations, float32, card and CPU, 9 and 15 DOF;
+    # whether TF32 was off inside the solve (the global setting on)
+    solve_precision = []
+    solve = vi_ba._solve_cameras
+
+    def recording_solve(*args, **kw):
+        solve_precision.append(torch.backends.cuda.matmul.fp32_precision)
+        return solve(*args, **kw)
+
+    kernels.reset_launch_counts()
+    res, card_probs = {}, {}
+    for dof, bias in (("9dof", False), ("15dof", True)):
+        card_probs[dof] = vi_problem(sc, device, bias_jac=bias)
+        t0 = time.perf_counter()
+        card, card_hist = vi_bundle_adjust(card_probs[dof], iters=iters, lam=lam)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu, cpu_hist = vi_bundle_adjust(vi_problem(sc, "cpu", bias_jac=bias), iters=iters, lam=lam)
+        cpu_s = time.perf_counter() - t0
+        r_card, c_card = vi_summary(card, card_hist, sc)
+        r_cpu, c_cpu = vi_summary(cpu, cpu_hist, sc)
+        vi_bars(f"vi_bundle_adjust {dof} on the card", r_card)
+        vi_bars(f"vi_bundle_adjust {dof} on the CPU", r_cpu)
+        diff = {"centre_max_diff_m": float(np.abs(c_card - c_cpu).max()),
+                "scale_diff": abs(r_card["scale"] - r_cpu["scale"])}
+        if not (diff["centre_max_diff_m"] < 1e-3 and diff["scale_diff"] < 1e-4):
+            raise AssertionError(f"vi_bundle_adjust {dof} card vs CPU: {diff}")
+        res[dof] = {"card": r_card, "cpu": r_cpu, **diff, "first_call_s": {"card": card_s,
+                                                                           "cpu": cpu_s}}
+    # the global setting at TF32: the solve must still run in IEEE float32
+    torch.backends.cuda.matmul.fp32_precision = "tf32"
+    try:
+        vi_ba._solve_cameras = recording_solve
+        vi_bundle_adjust(card_probs["9dof"], iters=iters, lam=lam)
+        off = solve_precision == ["ieee"] * iters
+        # reported, not required: the scale reached with TF32 on inside the solve
+        solve_precision.clear()
+        with contextlib.ExitStack() as stack:
+            stack.callback(setattr, vi_ba, "_ieee_f32_matmul", vi_ba._ieee_f32_matmul)
+            vi_ba._ieee_f32_matmul = contextlib.nullcontext
+            tf32, tf32_hist = vi_bundle_adjust(card_probs["9dof"], iters=iters, lam=lam)
+        res["tf32"] = {"off_inside_solve": off, "with_tf32_on": vi_summary(tf32, tf32_hist, sc)[0],
+                       "precision_seen_with_tf32_on": sorted(set(solve_precision))}
+    finally:
+        vi_ba._solve_cameras = solve
+        torch.backends.cuda.matmul.fp32_precision = "ieee"
+    if not off:
+        raise AssertionError(f"TF32 inside vi_bundle_adjust's solve: {solve_precision}")
+    out["a"] = res
+    log(f"[15 a vi_bundle_adjust] {json.dumps(res)}")
+
+    # (b) refine_slam_with_imu on phase 14's SlamResults, card and CPU
+    t, gyro, accel = loop_imu_log()
+    res = {}
+    for name in ("mono", "stereo"):
+        slam = maps[name]
+        centres = maps["centres" if name == "mono" else "stereo_centres"]
+        kf_t = np.asarray(slam.keyframes) * (IMU_PERIOD / SLAM_FRAMES)
+        runs = {}
+        for dev in (device, "cpu"):
+            refined, info = refine_slam_with_imu(slam, SLAM_FOCAL, t, gyro, accel, kf_t,
+                                                 estimate_accel_bias=False, device=dev)
+            est = state_centres(refined.states)
+            err, span = metric_errors(est, slam.keyframes, centres)
+            runs["cpu" if dev == "cpu" else "card"] = {
+                "est": est, "centre_err_over_radius_mean": err, "span_ratio": span,
+                "scale": info["scale"], "scale_applied": info["scale_applied"]}
+        diff = float(np.abs(runs["card"].pop("est") - runs["cpu"].pop("est")).max() / SLAM_RADIUS)
+        r = {**runs, "centre_max_diff_over_radius": diff}
+        for k in ("card", "cpu"):
+            q = runs[k]
+            if not (q["centre_err_over_radius_mean"] < 0.05 / 0.12 and abs(q["span_ratio"] - 1) < 0.15
+                    and (name == "mono" or q["scale_applied"] == 1.0)):
+                raise AssertionError(f"refine_slam_with_imu ({name}, {k}) against the truth: {r}")
+        if not diff < 1e-3:
+            raise AssertionError(f"refine_slam_with_imu ({name}) card vs CPU: {r}")
+        res[name] = r
+    vi_counts = kernels.launch_counts()
+    check_counts("the IMU functions and vi_bundle_adjust", vi_counts, {})
+    out["b"] = res
+    log(f"[15 b refine_slam_with_imu] {json.dumps(res)}")
+
+    # (c) slam --imu on phase 14's frames: in-process with the launches
+    # counted, then as a command with --imu-bias-states; its files in the
+    # checkout's git-ignored build/, deleted after
+    h, w = SLAM_HW
+    root = pathlib.Path(__file__).resolve().parent
+    work = root / "build" / "phase15"
+    raw, log_path, traj = work / "frames.raw", work / "imu.npz", work / "trajectory.npz"
+    work.mkdir(parents=True, exist_ok=True)
+    np.stack([np.repeat(f[..., None], 3, axis=-1) for f in maps["frames"]]).tofile(raw)
+    np.savez(log_path, t=t, gyro=gyro, accel=accel)
+    args = ["slam", "--input", f"pipe:{w}x{h}:{raw}", "--frames", str(SLAM_FRAMES), "--focal",
+            str(SLAM_FOCAL), "--kf-disparity", "0", "--imu", str(log_path), "--video-fps",
+            str(SLAM_FRAMES / IMU_PERIOD), "--no-accel-bias"]
+    try:
+        buf = io.StringIO()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(args + ["--out", str(traj)])
+        torch.cuda.synchronize()
+        cli_counts = kernels.launch_counts()
+        bias = subprocess.run([sys.executable, "-m", "optical_flow_tpu_torch", *args,
+                               "--imu-bias-states"], cwd=root, capture_output=True, text=True,
+                              timeout=600)
+        saved = np.load(traj)
+        poses, trans, keyframes = saved["poses"], saved["trans"], saved["keyframes"]
+    finally:
+        for f in (raw, log_path, traj):
+            f.unlink(missing_ok=True)
+        work.rmdir()
+    lines = buf.getvalue().splitlines()
+    n_kf, n_loops = int(lines[0].split()[1]), int(lines[0].split()[-1])
+    metric = [line for line in lines if "METRIC center" in line]
+    vi_line = [line for line in lines if line.startswith("VI refinement: scale ")]
+    est = -np.einsum("kji,kj->ki", poses, trans)
+    err, span = metric_errors(est, keyframes, maps["centres"])
+    want_k2 = mapper_k2(SLAM_FRAMES, n_kf, n_loops, 6)  # the CLI's loop_min_separation
+    check_counts("slam --imu", cli_counts, {"oft_pyramid": want_k2})
+    bias_lines = [line for line in bias.stdout.splitlines() if "bias states: gyro walked" in line]
+    res = {"rc": rc, "first_line": lines[0], "vi_line": vi_line[0] if vi_line else None,
+           "metric_lines": len(metric), "launches": cli_counts,
+           "centre_err_over_radius_mean": err, "span_ratio": span,
+           "bias_states_rc": bias.returncode, "bias_states_line": bias_lines[:1]}
+    if not (rc == 0 and vi_line and len(metric) == n_kf == len(keyframes)
+            and err < 0.05 / 0.12 and abs(span - 1) < 0.15):
+        raise AssertionError(f"slam --imu: {res}\n{buf.getvalue()[-3000:]}")
+    if bias.returncode != 0 or len(bias_lines) != 1:
+        raise AssertionError(f"slam --imu --imu-bias-states: rc {bias.returncode}\n{bias.stdout}"
+                             f"\n{bias.stderr[-2000:]}")
+    out["c"] = res
+    log(f"[15 c slam --imu] {json.dumps(res)}")
+
+    # (e) times on the card, after the checks
+    gyro_t, accel_t, dt_t = (torch.tensor(sc[k], dtype=torch.float32, device=device)
+                             for k in ("gyro", "accel", "dt"))
+    mono = maps["mono"]
+    kf_t = np.asarray(mono.keyframes) * (IMU_PERIOD / SLAM_FRAMES)
+    calls = {
+        "preintegrate_49x100": (lambda: imu.preintegrate(gyro_t, accel_t, dt_t), TIMED_CALLS),
+        "preintegrate_with_bias_jacobians_49x100": (
+            lambda: imu.preintegrate_with_bias_jacobians(gyro_t, accel_t, dt_t), 1),
+        "estimate_gyro_bias_3_iters": (
+            lambda: imu.estimate_gyro_bias(sc["poses"], gyro_t, dt_t, iters=3), 1),
+        "visual_inertial_alignment_with_bias": (
+            lambda: imu.visual_inertial_alignment_with_bias(
+                sc["poses"], sc["trans"], sc["dt"].sum(-1), gyro_t, accel_t, dt_t), 1),
+        "vi_bundle_adjust_9dof_60k_obs_12_iters": (
+            lambda: vi_bundle_adjust(card_probs["9dof"], iters=iters, lam=lam), 2),
+        "vi_bundle_adjust_15dof_60k_obs_12_iters": (
+            lambda: vi_bundle_adjust(card_probs["15dof"], iters=iters, lam=lam), 2),
+        "refine_slam_with_imu_mono": (
+            lambda: refine_slam_with_imu(mono, SLAM_FOCAL, t, gyro, accel, kf_t,
+                                         estimate_accel_bias=False), 1),
+    }
+    out["e"] = {}
+    for name, (fn, n) in calls.items():
+        out["e"][name] = call_profile(fn, n=n)
+        log(f"[15 e time] {name}: {json.dumps(out['e'][name])}")
+    return out, vi_counts, cli_counts
 
 
 def pyramid_graph_capture(device):
@@ -2622,8 +2985,12 @@ def main() -> int:
     sfm, sfm_counts = phase_sfm(device)
     log(f"[13 sfm] structure from motion passes ({time.perf_counter() - t13:.1f} s)")
     t14 = time.perf_counter()
-    mapper, slam_counts, stereo_counts, k3_c12 = phase_slam(device)
+    mapper, slam_counts, stereo_counts, k3_c12, maps = phase_slam(device)
     log(f"[14 slam] the mapper passes ({time.perf_counter() - t14:.1f} s)")
+    t15 = time.perf_counter()
+    _, vi_counts, slam_imu_counts = phase_vi(device, maps)
+    log(f"[15 vi] the visual-inertial back end passes ({time.perf_counter() - t15:.1f} s)")
+    del maps
     per_kernel["pyrup_warp_lk"]["by_shape"] += k3_c12
     del stream_results, ref_results
     per_kernel["pyramid"]["graph_capture"] = pyramid_graph_capture(device)
@@ -2672,7 +3039,8 @@ def main() -> int:
             "mesh_stream": msl["launches"], "mesh_controller": mctl["launches"],
             "reference": ref["launches"], "probes": prb["launches"],
             "track": track_counts, "shift_controller": shift_counts, "sfm": sfm_counts,
-            "slam": slam_counts, "stereo": stereo_counts}
+            "slam": slam_counts, "stereo": stereo_counts, "vi": vi_counts,
+            "slam_imu": slam_imu_counts}
     missing = [name for name, (entries, run, _, _) in meta.items()
                if any(runs[run][e] == 0 for e in entries)]
     if missing:
@@ -2688,13 +3056,16 @@ def main() -> int:
     # phase 14's runs: K2 builds every tracking pyramid of the mapper (its
     # exact count is asserted in the phase: each frame once, then the loop
     # closures'), K1 and K3 (at C = 12) solve the dense disparity
-    want_k2 = SLAM_FRAMES + 2 * min(3, sum(len(mapper["a"]["card"]["keyframes"]) - d for d in range(
-        SLAM_KW["loop_min_separation"], len(mapper["a"]["card"]["keyframes"])))) + 2 * len(
-        mapper["a"]["card"]["loop_edges"])
+    want_k2 = mapper_k2(SLAM_FRAMES, len(mapper["a"]["card"]["keyframes"]),
+                        len(mapper["a"]["card"]["loop_edges"]), SLAM_KW["loop_min_separation"])
     if not (runs["slam"]["oft_pyramid"] == want_k2 and runs["stereo"]["oft_lk"] > 0
             and runs["stereo"]["oft_pyrup_warp_lk"] > 0):
         raise AssertionError(f"phase 14 launched K2 {runs['slam']['oft_pyramid']} times (want "
                              f"{want_k2}), dense disparity {runs['stereo']}")
+    # phase 15's runs: the IMU functions and VI-BA launch no kernel; slam
+    # --imu launches K2 as the mapper does (exactly, asserted in the phase)
+    if any(runs["vi"].values()) or not runs["slam_imu"]["oft_pyramid"]:
+        raise AssertionError(f"phase 15 launches: VI {runs['vi']}, slam --imu {runs['slam_imu']}")
 
     # the probes' own rows: the first variant's time; all variants beside it
     first = {"interleave": "cols_float2", "colsum": "smem", "mul_add_chain": "f32"}

@@ -6,7 +6,7 @@
         [--stride 1] [--focal PX] [--window 8] [--corners 300]
         [--kf-disparity 6] [--stereo-sbs BASELINE] [--out OUT.npz]
         [--out-tum TRAJ.txt] [--eval-tum REF.txt] [--video-fps 30]
-        [--device cuda]
+        [--imu LOG.npz [--no-accel-bias] [--imu-bias-states]] [--device cuda]
 
 ``track`` is the sparse tracker of the reference's of.cpp, as the JAX
 package's ``track`` subcommand runs it: Shi–Tomasi corners on the first
@@ -23,9 +23,15 @@ centres; ``--stereo-sbs`` splits side-by-side frames into a rectified pair
 of that baseline (``slam.split_sbs``); ``--out`` writes poses and map as
 ``.npz``, ``--out-tum`` the keyframe trajectory in TUM format, and
 ``--eval-tum`` scores it against a TUM reference (ATE and RPE,
-``utils/interop.py``). ``--imu`` (visual-inertial refinement) is not
-ported yet and exits with an error. The JAX package's other subcommands
-(flow, video, serve, bench) are not ported yet.
+``utils/interop.py``; Sim(3)-aligned for a monocular run, SE(3) for the
+metric ones, stereo or ``--imu``). ``--imu`` refines the finished map
+against a continuous IMU log (``.npz`` with ``t`` (N,), ``gyro`` (N, 3)
+rad/s and ``accel`` (N, 3) m/s^2, body == camera; keyframes timestamped
+``frame * stride / video_fps``) with ``slam.refine_slam_with_imu``: bias
+estimation, linear alignment, joint VI-BA; the trajectory and map come out
+METRIC. ``--no-accel-bias`` skips the accelerometer bias (rotation-poor
+logs), ``--imu-bias-states`` carries 15-DOF bias states. The JAX package's
+other subcommands (flow, video, serve, bench) are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,13 +61,6 @@ def _cmd_track(args) -> None:
         prev, prev_pyr = gray, pyr
 
 
-_IMU_NOT_PORTED = (
-    "--imu is not ported yet: the visual-inertial refinement (slam/imu.py and "
-    "slam/vi_ba.py of the JAX package) is item 4 of ROADMAP.md's Queue 1 "
-    "(imu -> vi_ba -> slam --imu)"
-)
-
-
 def _cmd_slam(args) -> None:
     import itertools
 
@@ -72,9 +71,8 @@ def _cmd_slam(args) -> None:
     from optical_flow_tpu_torch.slam import incremental_slam, split_sbs
     from optical_flow_tpu_torch.utils.device import as_tensor, canonical_device
 
-    if args.imu:
-        sys.exit(_IMU_NOT_PORTED)
     device = canonical_device(args.device)
+    imu_log = _read_imu_log(args.imu) if args.imu else None
     sbs_baseline = args.stereo_sbs
 
     def gray(frame):
@@ -108,6 +106,8 @@ def _cmd_slam(args) -> None:
     for i, (kf, c) in enumerate(zip(res.keyframes, centers)):
         print(f"  kf {i} (frame {kf}): center {np.round(c, 4)}")
     kf_ts = np.asarray(res.keyframes, np.float64) * args.stride / args.video_fps
+    if imu_log is not None:
+        centers = _refine_with_imu(args, imu_log, res, focal, kf_ts, device)
     if args.out:
         np.savez(args.out, poses=res.poses, trans=res.trans, points=res.points,
                  keyframes=np.asarray(res.keyframes))
@@ -132,13 +132,58 @@ def _cmd_slam(args) -> None:
             sys.exit(f"--eval-tum: only {len(ia)} timestamp matches "
                      "(check --video-fps/--stride against the reference)")
         ref_c = np.stack([-R.T @ t for R, t in zip(rposes[ib], rtrans[ib])])
-        align = "se3" if sbs_baseline is not None else "sim3"
+        align = "se3" if (sbs_baseline is not None or args.imu) else "sim3"
         ate, err, _ = ate_rmse(centers[ia], ref_c, align=align)
         rpe = rpe_stats(res.poses[ia], res.trans[ia], rposes[ib], rtrans[ib])
         print(f"eval vs {args.eval_tum}: {len(ia)} poses matched | "
               f"ATE({align}) rmse {ate:.4f} (max {err.max():.4f}) | "
               f"RPE trans {rpe['trans_rmse']:.4f} "
               f"rot {np.degrees(rpe['rot_rmse_rad']):.3f} deg/step")
+
+
+def _read_imu_log(path) -> dict:
+    """The arrays t, gyro and accel of the ``--imu`` log, read before any
+    frame so that a bad log fails at once."""
+    import numpy as np
+
+    log = np.load(path)
+    try:
+        return {k: log[k] for k in ("t", "gyro", "accel")}
+    except KeyError as e:
+        sys.exit(f"--imu log missing array {e} (need t, gyro, accel)")
+
+
+def _refine_with_imu(args, log, res, focal, kf_ts, device):
+    """Tightly-coupled VI refinement of ``res`` in place from the IMU log;
+    prints the refinement's lines and returns the metric camera centres."""
+    import numpy as np
+
+    from optical_flow_tpu_torch.slam import refine_slam_with_imu
+    from optical_flow_tpu_torch.slam.vi_ba import states_to_poses
+    from optical_flow_tpu_torch.utils.device import host_array
+
+    try:
+        out, info = refine_slam_with_imu(
+            res, focal, log["t"], log["gyro"], log["accel"], kf_ts,
+            estimate_accel_bias=not args.no_accel_bias, bias_states=args.imu_bias_states,
+            device=device,
+        )
+    except ValueError as e:
+        sys.exit(f"--imu refinement failed: {e} (check --video-fps covers the log's time span)")
+    poses, trans = states_to_poses(out.states)
+    res.poses = poses.astype(np.float32)
+    res.trans = trans.astype(np.float32)
+    res.points = host_array(out.points)
+    print(f"VI refinement: scale {info['scale']:.4f} gyro bias {np.round(info['gyro_bias'], 4)} "
+          f"accel bias {np.round(info['accel_bias'], 3)} gravity {np.round(info['gravity'], 3)}")
+    if "gyro_bias_per_kf" in info:
+        drift = info["gyro_bias_per_kf"][-1] - info["gyro_bias_per_kf"][0]
+        print(f"  bias states: gyro walked {np.round(drift, 4)} rad/s "
+              f"over {len(info['gyro_bias_per_kf'])} keyframes")
+    centers = res.centers()
+    for i, (kf, c) in enumerate(zip(res.keyframes, centers)):
+        print(f"  kf {i} (frame {kf}): METRIC center {np.round(c, 4)}")
+    return centers
 
 
 def main(argv=None) -> int:
@@ -169,16 +214,25 @@ def main(argv=None) -> int:
                    "from --video-fps/--stride)")
     p.add_argument("--eval-tum", default=None, metavar="REF.txt",
                    help="evaluate against a TUM reference trajectory: nearest-timestamp "
-                   "association, ATE (Sim3-aligned monocular, SE3 stereo) and RPE")
+                   "association, ATE (Sim3-aligned monocular, SE3 for the metric stereo and "
+                   "--imu runs) and RPE")
     p.add_argument("--stereo-sbs", type=float, default=None, metavar="BASELINE",
                    help="side-by-side rectified stereo (left|right) with this baseline; "
                    "trajectory and map come out metric in its units")
     p.add_argument("--imu", default=None, metavar="LOG.npz",
-                   help="visual-inertial refinement: not ported yet (exits with an error)")
+                   help="tightly-coupled VI refinement from a continuous IMU log (.npz with t "
+                   "(N,), gyro (N,3) rad/s, accel (N,3) m/s^2, body==camera frame): bias "
+                   "estimation -> linear alignment -> joint VI-BA; trajectory and map come out "
+                   "METRIC")
     p.add_argument("--video-fps", type=float, default=30.0,
-                   help="capture frame rate, to timestamp keyframes")
-    p.add_argument("--no-accel-bias", action="store_true", help="with --imu (not ported)")
-    p.add_argument("--imu-bias-states", action="store_true", help="with --imu (not ported)")
+                   help="capture frame rate, to timestamp keyframes (against the IMU log's t "
+                   "axis with --imu)")
+    p.add_argument("--no-accel-bias", action="store_true",
+                   help="skip accel-bias estimation (rotation-poor logs: accel bias separates "
+                   "from gravity only under rotation-axis variety)")
+    p.add_argument("--imu-bias-states", action="store_true",
+                   help="carry per-keyframe bias states (15-DOF) through the joint VI-BA with "
+                   "random-walk coupling, for logs long enough that the biases drift")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     p.set_defaults(fn=_cmd_slam)
     args = ap.parse_args(argv)

@@ -3,8 +3,8 @@
 The functions read the JAX objects by field name and import nothing of JAX,
 so they take the dataclasses of ``optical_flow_tpu.config``, of
 ``optical_flow_tpu.track``, ``optical_flow_tpu.flow.horn_schunck`` and
-``optical_flow_tpu.slam.epipolar``, the pose graphs and ``SlamResult`` of
-``optical_flow_tpu.slam``, the numpy dict of
+``optical_flow_tpu.slam.epipolar``, the pose graphs, ``SlamResult`` and
+``VIBAProblem`` of ``optical_flow_tpu.slam``, the numpy dict of
 ``optical_flow_tpu.pipeline.VideoPipeline.state()``, a
 ``jax.sharding.Mesh`` (through its ``shape``) and a
 ``optical_flow_tpu.slam.BAProblem`` (its arrays read through numpy) as they
@@ -33,6 +33,7 @@ from optical_flow_tpu_torch.slam.ba import BAProblem
 from optical_flow_tpu_torch.slam.epipolar import EssentialRansacConfig
 from optical_flow_tpu_torch.slam.incremental import SlamResult
 from optical_flow_tpu_torch.slam.pose_graph import PoseGraph, Sim3PoseGraph
+from optical_flow_tpu_torch.slam.vi_ba import VIBAProblem
 from optical_flow_tpu_torch.track.pose import RansacConfig
 from optical_flow_tpu_torch.track.sparse_lk import SparseLKConfig
 
@@ -138,6 +139,20 @@ def ba_problem_from_jax(problem) -> BAProblem:
         t(problem.cams), t(problem.points), t(problem.cam_idx), t(problem.pt_idx),
         t(problem.obs), float(problem.focal), t(problem.weight), t(problem.baseline),
     )
+
+
+def vi_problem_from_jax(problem) -> VIBAProblem:
+    """A JAX VIBAProblem -> the port's: every array (states, points,
+    observations, deltas, gravity, weights, bias Jacobians) a CPU tensor of
+    its own dtype, the optional ones carried when present. A data conversion
+    only: ``vi_bundle_adjust`` keeps the tensors on the CPU, or ``device=``
+    moves them."""
+
+    def t(x):
+        return None if x is None else torch.from_numpy(np.array(x))
+
+    return VIBAProblem(**{name: t(getattr(problem, name)) for name in VIBAProblem._fields
+                          if name != "focal"}, focal=float(problem.focal))
 
 
 def _host_list(xs):

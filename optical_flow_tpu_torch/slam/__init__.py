@@ -19,9 +19,16 @@ Layer map, in dependency order:
                   coarse_to_fine (K1 and K3 at C = 12 on the card)
   incremental.py  incremental_slam: the mapper over all of the above, the
                   engine of ``python -m optical_flow_tpu_torch slam``
+  imu.py          IMU preintegration (a loop over the samples, batched over
+                  the intervals; bias Jacobians by forward-mode
+                  differentiation), gyro-bias estimation and the linear
+                  visual-inertial alignment
+  vi_ba.py        tightly-coupled visual-inertial BA (9- and 15-DOF states,
+                  IMU factors in the reduced camera system) and
+                  refine_slam_with_imu, the engine of ``slam --imu``
 
-Not ported yet: imu, vi_ba (and ``slam --imu``), and sharded_bundle_adjust
-with the mesh over several cards.
+Not ported yet: sharded_bundle_adjust and sharded_vi_bundle_adjust, which
+wait for the mesh over several cards.
 """
 
 from optical_flow_tpu_torch.slam.ba import (
@@ -48,6 +55,7 @@ from optical_flow_tpu_torch.slam.epipolar import (
     triangulate,
 )
 from optical_flow_tpu_torch.slam.frontend import TwoViewReconstruction, two_view_reconstruct
+from optical_flow_tpu_torch.slam.imu import preintegrate, visual_inertial_alignment
 from optical_flow_tpu_torch.slam.incremental import SlamResult, incremental_slam
 from optical_flow_tpu_torch.slam.pnp import pnp_dlt, pnp_ransac
 from optical_flow_tpu_torch.slam.pose_graph import (
@@ -68,6 +76,14 @@ from optical_flow_tpu_torch.slam.stereo import (
     split_sbs,
     stereo_backproject,
     stereo_match,
+)
+from optical_flow_tpu_torch.slam.vi_ba import (
+    VIBAProblem,
+    group_imu_by_keyframes,
+    refine_slam_with_imu,
+    refine_with_imu,
+    vi_bundle_adjust,
+    vi_problem_from_ba,
 )
 from optical_flow_tpu_torch.slam.window import WindowedBA
 
@@ -111,4 +127,12 @@ __all__ = [
     "thumbnail_descriptor",
     "umeyama_alignment",
     "verify_loop_closure",
+    "preintegrate",
+    "visual_inertial_alignment",
+    "VIBAProblem",
+    "group_imu_by_keyframes",
+    "refine_slam_with_imu",
+    "refine_with_imu",
+    "vi_bundle_adjust",
+    "vi_problem_from_ba",
 ]

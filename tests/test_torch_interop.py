@@ -11,7 +11,11 @@ numpy inputs made from a seed, and the port's ``slam`` subcommand
                                       --out-tum reads back through
                                       load_tum_trajectory; --eval-tum's ATE
                                       (Sim3 monocular, SE3 stereo) < 0.02
-                                      (loop radius 0.12); --imu exits non-zero
+                                      (loop radius 0.12); with --imu the METRIC
+                                      lines, a saved trajectory within 0.05 of
+                                      the truth with no scale fit, ATE(se3) <
+                                      0.05; a log missing gyro exits with the
+                                      JAX CLI's message
 """
 
 import numpy as np
@@ -156,10 +160,61 @@ def test_slam_cli_stereo_sbs(tmp_path, capsys):
     assert float(ate[0].split("rmse ")[1].split()[0]) < 0.02, ate[0]
 
 
-def test_slam_cli_refuses_imu(tmp_path):
+G_W = np.asarray([0.0, -9.81, 0.0])
+
+
+def _loop_imu_log(path, period):
+    """tests/test_vi_ba.py::test_cli_slam_with_imu's log: 200 Hz over one
+    loop, zero gyro (R = I), accel a - g."""
+    om = 2 * np.pi / period
+    t = np.arange(0.0, period, 1.0 / 200.0)
+    acc = np.stack([-0.12 * om * om * np.sin(om * t), 0.08 * om * om * np.cos(om * t),
+                    np.zeros_like(t)], -1)
+    np.savez(path, t=t, gyro=np.zeros((len(t), 3)), accel=acc - G_W)
+
+
+def test_slam_cli_with_imu(tmp_path, capsys):
+    """tests/test_vi_ba.py::test_cli_slam_with_imu on raw pipe: frames: the
+    METRIC lines, the saved trajectory metric with no scale fit (mean error
+    < 0.05, loop radius 0.12), and --eval-tum aligned in SE(3)."""
     from optical_flow_tpu_torch.__main__ import main
 
+    n, period = 8, 6.0  # the JAX test's loop and log, 8 frames (as the test above) for time
+    frames, centers = render_loop(n_frames=n)
+    h, w = frames[0].shape
+    _write_pipe(tmp_path / "loop.raw", frames)
+    _loop_imu_log(tmp_path / "imu.npz", period)
+    fps = n / period
+    _truth_tum(tmp_path / "ref.txt", centers, fps=fps)
+    npz = tmp_path / "traj.npz"
+    assert main(["slam", "--input", f"pipe:{w}x{h}:{tmp_path / 'loop.raw'}", "--frames", str(n),
+                 "--focal", "400", "--kf-disparity", "0", "--imu", str(tmp_path / "imu.npz"),
+                 "--video-fps", str(fps), "--no-accel-bias", "--out", str(npz), "--device", "cpu",
+                 "--eval-tum", str(tmp_path / "ref.txt")]) == 0
+    out = capsys.readouterr().out.splitlines()
+    got = np.load(npz)
+    n_kf = len(got["keyframes"])
+    vi = [i for i, line in enumerate(out) if line.startswith("VI refinement: scale ")]
+    assert len(vi) == 1 and "gyro bias" in out[vi[0]] and "gravity" in out[vi[0]]
+    assert [line.split(":")[0] for line in out[vi[0] + 1:vi[0] + 1 + n_kf]] == [
+        f"  kf {i} (frame {k})" for i, k in enumerate(got["keyframes"])]
+    assert all("METRIC center" in line for line in out[vi[0] + 1:vi[0] + 1 + n_kf])
+    est = np.stack([-R.T @ t for R, t in zip(got["poses"], got["trans"])])
+    true = np.asarray([centers[i] for i in got["keyframes"]])
+    assert np.linalg.norm(est - true, axis=1).mean() < 0.05  # metric, no fit
+    ate = [line for line in out if line.startswith("eval vs ")]
+    assert len(ate) == 1 and "ATE(se3)" in ate[0]
+    assert float(ate[0].split("rmse ")[1].split()[0]) < 0.05, ate[0]
+
+
+def test_slam_cli_imu_log_missing_gyro(tmp_path):
+    """A log without gyro exits with the JAX CLI's message (before any frame
+    is read)."""
+    from optical_flow_tpu_torch.__main__ import main
+
+    np.savez(tmp_path / "imu.npz", t=np.arange(4.0), accel=np.zeros((4, 3)))
     with pytest.raises(SystemExit) as e:
-        main(["slam", "--input", f"pipe:8x8:{tmp_path / 'none.raw'}", "--imu", "log.npz",
-              "--device", "cpu"])
-    assert e.value.code != 0 and "imu" in str(e.value.code) and "Queue 1" in str(e.value.code)
+        main(["slam", "--input", f"pipe:8x8:{tmp_path / 'none.raw'}", "--imu",
+              str(tmp_path / "imu.npz"), "--device", "cpu"])
+    assert str(e.value.code).startswith("--imu log missing array 'gyro")
+    assert str(e.value.code).endswith("(need t, gyro, accel)")

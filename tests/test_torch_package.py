@@ -143,21 +143,22 @@ def test_exports_cover_the_jax_package():
         assert all(hasattr(t, name) for name in t.__all__)
     assert optical_flow_tpu_torch.track.track_features is optical_flow_tpu_torch.track.sparse_lk.track_features
     # slam/ is ported in slices: what the port exports, it exports under
-    # JAX's names; what it lacks is exactly the visual-inertial slice (imu,
-    # vi_ba) and the bundle adjustment sharded over several cards
+    # JAX's names; what it lacks is exactly the bundle adjustments sharded
+    # over several cards
     import optical_flow_tpu.slam
     import optical_flow_tpu_torch.slam
 
     assert set(optical_flow_tpu_torch.slam.__all__) <= set(optical_flow_tpu.slam.__all__)
     assert all(hasattr(optical_flow_tpu_torch.slam, name) for name in optical_flow_tpu_torch.slam.__all__)
     missing = set(optical_flow_tpu.slam.__all__) - set(optical_flow_tpu_torch.slam.__all__)
-    assert missing == {
-        "preintegrate", "visual_inertial_alignment", "VIBAProblem", "group_imu_by_keyframes",
-        "refine_slam_with_imu", "refine_with_imu", "sharded_vi_bundle_adjust",
-        "vi_bundle_adjust", "vi_problem_from_ba", "sharded_bundle_adjust",
-    }, sorted(missing)
+    assert missing == {"sharded_vi_bundle_adjust", "sharded_bundle_adjust"}, sorted(missing)
+    import optical_flow_tpu_torch.slam.imu as imu
+
+    for name in ("estimate_gyro_bias", "preintegrate_with_bias_jacobians",
+                 "visual_inertial_alignment_with_bias"):
+        assert callable(getattr(imu, name))
     for module in ("epipolar", "pnp", "ba", "window", "frontend", "descriptors", "pose_graph",
-                   "stereo", "incremental"):
+                   "stereo", "incremental", "imu", "vi_ba"):
         assert (PKG / "slam" / f"{module}.py").exists()
 
 
