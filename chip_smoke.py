@@ -2,9 +2,10 @@
 """Drive the PyTorch port's streaming 1080^2 flow paths (the fast preset,
 unsharded and on a 2x2 tile mesh, and the reference-parity default
 configuration), the sparse tracker, Horn-Schunck, the exact 'shift' warp,
-structure from motion, the mapper (incremental SLAM, stereo, the slam CLI)
-and the visual-inertial back end (IMU preintegration, VI-BA, slam --imu)
-once on an NVIDIA GPU, and run the probes S2-S4.
+structure from motion, the mapper (incremental SLAM, stereo, the slam CLI),
+the visual-inertial back end (IMU preintegration, VI-BA, slam --imu) and
+the serving path (FlowServer answering socket streams, the CLI's video and
+flow) once on an NVIDIA GPU, and run the probes S2-S4.
 
     python3 chip_smoke.py
 
@@ -148,7 +149,33 @@ Phases, each printing one line (any failure raises and exits non-zero):
      no kernel; (e) ms per call, device events, busy ms and idle share of
      preintegrate, its bias Jacobians, estimate_gyro_bias,
      visual_inertial_alignment_with_bias, vi_bundle_adjust at 9 and 15 DOF
-     and refine_slam_with_imu.
+     and refine_slam_with_imu;
+ 16. the serving path (pipeline/serve.py) on phase 4's frames: (a) a
+     FlowServer on the card answering a fast stream at full width over TCP
+     (720x1280 frames, 1080^2 processing, the flow returned): two warm-up
+     replies, then each result equal to VideoPipeline(VideoConfig.fast())
+     pushed directly bit for bit (u, v as float32 bits, votes, detected,
+     cx, cy), the served steady frames launching exactly phase 4's K2 1,
+     K1 1, K3 3 a frame; a second stream on the connection pooled, equal,
+     with no new capture and phase 4's counts; the same stream through a
+     FlowServer(mesh=2x2 tile grid on the card) equal too, with phase 7's
+     counts (K5 per tile, P1 once per tile); (b) two clients on two
+     threads (frames of seeds 0 and 1) at once, each equal to its direct
+     run; a faithful stream at 256^2 (K1 and S1) equal to its direct run
+     with the same counts; one stream over a Unix socket; the JAX package's
+     impl="pallas" building the impl="cuda" pipeline; (c) `python -m
+     optical_flow_tpu_torch video --fast --size 1080 --metrics` on the
+     frames written raw: exit 0, its frame lines those of (a)'s direct run,
+     10 frames and no guard trip in its metrics; (d) `flow` on phase 5's
+     pair written as PNGs: its saveMat text and .flo equal coarse_to_fine
+     called directly on the card (reference mode, the CLI's default, whose
+     flow is not the pair's displacement: its median EPE to the shift is
+     printed, not held); (e) ms a served frame from send to reply with and
+     without the flow beside the direct push, over a pooled window of 300
+     frames split into the client's send, the server's push and D2H, the
+     rest of the wait and the flow's receipt; the time to a first result
+     of a new and a pooled pipeline, device events, busy ms and idle share
+     of traced served frames, and the memory a pooled pipeline holds.
 Phase 3 also holds S1 at the three upsamples of a 1080^2 frame, and over
 a ragged sweep at odd and even coarse widths on both sides of its
 launcher's strip rule, bit for bit, and K1 at every level of the reference path, and times the one
@@ -157,7 +184,9 @@ TF32 off; the pyramid's: one a level). At the end, whether the pyramid's
 grids (one a level, programmatic dependent launch) can be captured into a
 CUDA graph (reported, not required). Launch counters are reset just before
 the runs of phases 4, 5, 7, 8, 9, 10, 11 (c), 12 (a), 12 (d), 13 (a), 14 (a),
-14 (c), 15 (a) and (b) together, and 15 (c), and read just after each. Then one
+14 (c), 15 (a) and (b) together, 15 (c), 16 (a) (the served steady frames,
+and the pooled stream) and 16 (b) (the faithful stream), and read just
+after each. Then one
 JSON line with the kernels (each with its least time on the card, from
 utils/profiling's byte and operation model against the published H100
 peaks, its time at the rates phase 10 sustained, its device time on
@@ -242,7 +271,10 @@ RUNS = {"stream": "VideoPipeline.push (phase 4)",
         "slam": "incremental_slam, 10 frames of 720x1280 (phase 14 a)",
         "stereo": "dense_disparity, one 720x1280 rig pair, C = 12 (phase 14 c)",
         "vi": "the IMU functions and vi_bundle_adjust, 9 and 15 DOF (phase 15 a, b)",
-        "slam_imu": "slam --imu, 10 frames of 720x1280 (phase 15 c)"}
+        "slam_imu": "slam --imu, 10 frames of 720x1280 (phase 15 c)",
+        "serve": "FlowServer, fast stream at 1080^2 over TCP, pooled (phase 16 a)",
+        "serve_faithful": "FlowServer, faithful stream at 256^2 (phase 16 b)",
+        "serve_mesh": "FlowServer(mesh=2x2 tile mesh), fast stream at 1080^2 (phase 16 a)"}
 PROFILE_WARMUP, PROFILE_FRAMES = 5, 40
 REFERENCE_PROFILE_FRAMES = 20
 HOST_WARM, HOST_TIMED = 5, 30  # phase 11 (e): frames before and inside the timed window
@@ -2764,6 +2796,436 @@ def phase_vi(device, maps):
     return out, vi_counts, cli_counts
 
 
+# ------------------------------------------------------ phase 16: serving
+
+SERVE_PROC = (SIZE, SIZE)  # the fast stream at full width
+SERVE_FAITHFUL_PROC = (256, 256)  # the protocol's and the CLI's default proc size
+SERVE_TRACED = 5  # served frames under the tracer (e)
+SERVE_WINDOW = 300  # frames of (e)'s split window, phase 4's cycled; the first 3 not counted
+
+
+def served_stream(client, frames, reset_at=None, **kw):
+    """Stream `frames` on an open FlowClient. Returns the handshake reply,
+    the replies, the end reply, ms from each send to its reply, the seconds
+    from the handshake to the first result (the third frame's reply), and
+    the launch counts from frame `reset_at` on (counters reset just before
+    it is sent; None: not reset)."""
+    from optical_flow_tpu_torch import kernels
+
+    H, W = frames[0].shape[:2]
+    t0 = time.perf_counter()
+    hello = client.start_stream(H, W, **kw)
+    if not hello.get("ok"):
+        raise AssertionError(f"handshake refused: {hello}")
+    replies, ms, first = [], [], None
+    for k, f in enumerate(frames):
+        if k == reset_at:
+            kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        replies.append(client.push(f))
+        ms.append((time.perf_counter() - t1) * 1e3)
+        if k == 2:
+            first = time.perf_counter() - t0
+    counts = kernels.launch_counts() if reset_at is not None else None
+    return hello, replies, client.end_stream(), ms, first, counts
+
+
+def _quantiles(ms):
+    return {"median": float(np.median(ms)), "p10": float(np.quantile(ms, 0.1)),
+            "p90": float(np.quantile(ms, 0.9))}
+
+
+def served_split(srv, frames, n, **hs):
+    """Stream n frames (`frames` cycled) on a pooled pipeline of `srv` and
+    split each steady frame's host time, in ms: the client's send of the
+    frame; the server's step, its push (synchronized) and the rest of it
+    (the gesture's scalars and the flow's copy to the host); the client's
+    wait for the reply line beyond the step (the server's read of the
+    payload, its JSON write, the threads' hand-offs); and the receipt of
+    the flow (the server's write and the client's reads). Quantiles over
+    frames 3..n-1."""
+    import torch
+
+    from optical_flow_tpu_torch.pipeline.serve import _U32, FlowClient
+
+    H, W = frames[0].shape[:2]
+    push_ms, step_ms = [], []
+    step = srv.step
+
+    def timed_push(push):
+        def run(frame):
+            t0 = time.perf_counter()
+            r = push(frame)
+            torch.cuda.synchronize()
+            push_ms.append((time.perf_counter() - t0) * 1e3)
+            return r
+        return run
+
+    def timed_step(*args):
+        t0 = time.perf_counter()
+        r = step(*args)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    pipes = [p for _, p in pooled_pipelines(srv)]
+    for p in pipes:
+        p.push = timed_push(p.push)
+    srv.step = timed_step
+    payloads = [_U32.pack(f.nbytes) + np.ascontiguousarray(f).tobytes() for f in frames]
+    send, wait, recv = [], [], []
+    try:
+        with FlowClient(srv.address) as c:
+            hello = c.start_stream(H, W, **hs)
+            if hello != {"ok": True, "pooled": True}:
+                raise AssertionError(f"split window: not a pooled stream: {hello}")
+            for k in range(n):
+                t0 = time.perf_counter()
+                c._sock.sendall(payloads[k % len(payloads)])
+                t1 = time.perf_counter()
+                reply = c._read_json()
+                t2 = time.perf_counter()
+                if hs.get("return_flow") and not reply.get("warmup"):
+                    c._read_blob()
+                t3 = time.perf_counter()
+                if k >= 2 and not np.isfinite([reply["cx"], reply["cy"]]).all():
+                    raise AssertionError(f"split window: reply {k}: {reply}")
+                send.append((t1 - t0) * 1e3)
+                wait.append((t2 - t1) * 1e3)
+                recv.append((t3 - t2) * 1e3)
+            if c.end_stream() != {"end": True, "frames": n}:
+                raise AssertionError("split window: wrong end reply")
+    finally:
+        del srv.step
+        for p in pipes:
+            del p.push
+    if not (len(push_ms) == len(step_ms) == n):
+        raise AssertionError(f"split window: {len(push_ms)} pushes, {len(step_ms)} steps timed")
+    steady = slice(3, None)
+    send, wait, recv = (np.array(x[steady]) for x in (send, wait, recv))
+    push, stp = np.array(push_ms[steady]), np.array(step_ms[steady])
+    return {"frames": n - 3, "total": _quantiles(send + wait + recv),
+            "client_send": _quantiles(send), "server_push_synced": _quantiles(push),
+            "server_scalars_and_d2h": _quantiles(stp - push),
+            "wait_beyond_step": _quantiles(wait - stp), "flow_receipt": _quantiles(recv)}
+
+
+def same_as_direct(what, replies, direct, flow=True):
+    """Raise unless the replies are two warm-ups and then the direct
+    results bit for bit: u and v as float32 bits, votes, detected, cx, cy."""
+    if [r.get("warmup", False) for r in replies[:2]] != [True, True] or \
+            len(replies) - 2 != len(direct):
+        raise AssertionError(f"{what}: {len(replies)} replies for {len(direct)} results")
+    for k, (r, d) in enumerate(zip(replies[2:], direct)):
+        g = d.gesture
+        ok = (r.get("frame") == k + 2 and r["votes"] == int(g.votes)
+              and r["detected"] == bool(g.detected) and r["cx"] == float(g.cx)
+              and r["cy"] == float(g.cy))
+        for name in ("u", "v") if flow else ():
+            want = getattr(d, name).float().cpu().numpy()
+            ok = ok and r[name].shape == want.shape and np.array_equal(
+                r[name].view(np.uint32), want.view(np.uint32))
+        if not ok:
+            raise AssertionError(f"{what}: served result {k} differs from the direct push")
+
+
+def pooled_pipelines(srv):
+    """(key, pipeline) of every idle pipeline in the server's pool."""
+    return [(k, p) for k, free in srv.pool._free.items() for p in free]
+
+
+def phase_serve(device, frames):
+    """Phase 16: FlowServer answering socket streams on the card. (a) fast
+    at full width over TCP, bit for bit with the direct push, steady counts
+    per frame, then a pooled stream that replays the captured graph; (b)
+    two concurrent clients, a faithful stream at 256^2, a Unix socket, the
+    JAX impl names; (c) `video --fast` and (d) `flow` as commands; (e)
+    served ms a frame with and without the flow, direct push beside it, the
+    time to a first result, a traced served frame and memory per pooled
+    pipeline."""
+    import os
+    import pathlib
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from PIL import Image
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.config import FlowConfig
+    from optical_flow_tpu_torch.flow.coarse_to_fine import coarse_to_fine
+    from optical_flow_tpu_torch.pipeline.serve import FlowClient, FlowServer, _make_config
+    from optical_flow_tpu_torch.pipeline.video import VideoPipeline
+    from optical_flow_tpu_torch.utils.goldens import save_mat
+    from optical_flow_tpu_torch.utils.images import imread_gray
+    from optical_flow_tpu_torch.utils.interop import load_flo
+
+    F = len(frames)
+    H, W = frames[0].shape[:2]
+    out = {}
+    fast = _make_config("fast", SERVE_PROC, "auto")
+    faithful = _make_config("faithful", SERVE_FAITHFUL_PROC, "auto")
+    kernels.reset_launch_counts()
+    direct, direct_ms = run_stream(fast, frames, device)
+    direct_counts = kernels.launch_counts()
+    check_counts("direct fast push", direct_counts,
+                 {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2)})
+    frames_b = synthetic_frames(np.random.RandomState(SEED + 1), F, FRAME_HW)
+    direct_b, _ = run_stream(fast, frames_b, device)
+    kernels.reset_launch_counts()
+    direct_f, direct_f_ms = run_stream(faithful, frames, device)
+    faithful_counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    mem = [torch.cuda.memory_allocated(device)]
+    fast_hs = dict(preset="fast", proc_size=SERVE_PROC, return_flow=True)
+
+    srv = FlowServer(port=0)  # on the card: its default device
+    srv.start_background()
+    try:
+        with FlowClient(srv.address) as c:
+            # (a) a new pipeline (captured at its third frame), then the
+            # served steady frames counted; then the same stream pooled
+            hello1, r1, tail1, ms1, first1, steady = served_stream(c, frames, reset_at=3, **fast_hs)
+            if hello1 != {"ok": True, "pooled": False} or tail1 != {"end": True, "frames": F}:
+                raise AssertionError(f"first served stream: {hello1}, {tail1}")
+            same_as_direct("served fast stream", r1, direct)
+            n_steady = F - 3
+            check_counts("served steady frames", steady, {
+                "oft_pyramid": n_steady, "oft_lk": n_steady, "oft_pyrup_warp_lk": 3 * n_steady})
+            torch.cuda.synchronize()
+            mem.append(torch.cuda.memory_allocated(device))
+            ((key, pipe),) = pooled_pipelines(srv)
+            graphs = dict(pipe._graphs)
+            hello2, r2, tail2, ms2, first2, pooled_counts = served_stream(c, frames, reset_at=0,
+                                                                          **fast_hs)
+            if hello2 != {"ok": True, "pooled": True} or tail2 != {"end": True, "frames": F}:
+                raise AssertionError(f"pooled served stream: {hello2}, {tail2}")
+            same_as_direct("pooled served stream", r2, direct)
+            if len(graphs) != 1 or pipe._graphs.keys() != graphs.keys() or any(
+                    pipe._graphs[k] is not g for k, g in graphs.items()):
+                raise AssertionError(f"the pooled stream captured a new graph: {list(pipe._graphs)}")
+            check_counts("pooled served stream", pooled_counts, direct_counts)
+            # (e) without the flow, pooled
+            _, r3, _, ms3, _, _ = served_stream(c, frames, preset="fast", proc_size=SERVE_PROC)
+            same_as_direct("served fast stream without the flow", r3, direct, flow=False)
+        # the same stream through a server whose pipelines tile the flow
+        # over a 2x2 mesh on the card: phase 7's launches (K2 1, K1 1, K3 1
+        # at 270^2, K5 per tile at 540^2 and 1080^2; P1 once per tile at
+        # the new mesh's first sharded call)
+        tiles = GRID[0] * GRID[1]
+        msrv = FlowServer(port=0, mesh=grid_mesh(device))
+        msrv.start_background()
+        try:
+            with FlowClient(msrv.address) as c:
+                _, rm, tailm, msm, _, mesh_counts = served_stream(c, frames, reset_at=0,
+                                                                  **fast_hs)
+        finally:
+            msrv.shutdown()
+        if tailm != {"end": True, "frames": F}:
+            raise AssertionError(f"mesh-served stream: {tailm}")
+        same_as_direct("mesh-served stream", rm, direct)
+        check_counts("mesh-served stream", mesh_counts, {
+            "oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": F - 2,
+            "oft_pyrup_warp_lk_tile": 2 * tiles * (F - 2), "oft_tile_copy": tiles})
+        out["a"] = {"pooled": [hello1["pooled"], hello2["pooled"]], "results": len(r1) - 2,
+                    "bit_identical": True, "steady_launches_per_frame": {
+                        k: v / n_steady for k, v in steady.items() if v},
+                    "pooled_stream_launches": pooled_counts, "graphs": len(graphs),
+                    "mesh_stream_launches": mesh_counts,
+                    "mesh_ms_per_frame_median": float(np.median(msm[3:]))}
+        log(f"[16 a served fast 1080^2] {json.dumps(out['a'])}")
+
+        # (b) two clients at once, each its own frames: one takes the pooled
+        # pipeline, the other builds and captures its own while the first is
+        # answered
+        results, errors = {}, []
+
+        def client(name, fr):
+            try:
+                with FlowClient(srv.address) as cc:
+                    results[name] = served_stream(cc, fr, **fast_hs)
+            except Exception as e:  # re-raised below, in the main thread
+                errors.append(f"{name}: {e!r}")
+
+        threads = [threading.Thread(target=client, args=(n, fr))
+                   for n, fr in (("seed0", frames), ("seed1", frames_b))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"concurrent clients: {errors}, alive "
+                                 f"{[t.is_alive() for t in threads]}")
+        same_as_direct("concurrent client, seed 0", results["seed0"][1], direct)
+        same_as_direct("concurrent client, seed 1", results["seed1"][1], direct_b)
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated(device))
+        b = {"concurrent_pooled": sorted(r[0]["pooled"] for r in results.values()),
+             "pooled_fast_pipelines": len(pooled_pipelines(srv))}
+        with FlowClient(srv.address) as c:
+            _, rf, _, msf, _, served_f = served_stream(
+                c, frames, reset_at=0, preset="faithful", proc_size=SERVE_FAITHFUL_PROC,
+                return_flow=True)
+            same_as_direct("served faithful stream", rf, direct_f)
+            check_counts("served faithful stream", served_f, faithful_counts)
+            if not (served_f["oft_lk"] and served_f["oft_pyrup"]):
+                raise AssertionError(f"the faithful stream launched no K1 / S1: {served_f}")
+            # the JAX package's impl names: "pallas" builds the "cuda" pipeline
+            short = frames[:6]
+            hp, rp, _, _, _, _ = served_stream(c, short, impl="pallas", **fast_hs)
+            hc, rc_, _, _, _, _ = served_stream(c, short, impl="cuda", **fast_hs)
+            same_as_direct("impl='pallas' stream", rp, direct[:4])
+            same_as_direct("impl='cuda' stream", rc_, direct[:4])
+            named = [p.config.flow.impl for k, p in pooled_pipelines(srv) if k[-1] == "cuda"]
+            if (hp["pooled"], hc["pooled"]) != (False, True) or named != ["cuda"]:
+                raise AssertionError(f"impl names: pallas {hp}, cuda {hc}, pooled {named}")
+        b.update({"faithful_launches": served_f, "faithful_results": len(rf) - 2,
+                  "pallas_then_cuda_pooled": [hp["pooled"], hc["pooled"]]})
+        sock_dir = tempfile.mkdtemp()
+        try:
+            usrv = FlowServer(unix_path=os.path.join(sock_dir, "flow.sock"))
+            usrv.start_background()
+            try:
+                with FlowClient(usrv.address) as c:
+                    _, ru, tailu, _, _, _ = served_stream(c, short, **fast_hs)
+            finally:
+                usrv.shutdown()
+        finally:
+            shutil.rmtree(sock_dir, ignore_errors=True)
+        same_as_direct("Unix-socket stream", ru, direct[:4])
+        b["unix_frames"] = tailu["frames"]
+        out["b"] = b
+        log(f"[16 b concurrency and surfaces] {json.dumps(b)}")
+
+        # (e) the split window, with and without the flow, and the direct
+        # push on the same cycled frames
+        split = {"with_flow": served_split(srv, frames, SERVE_WINDOW, **fast_hs),
+                 "without_flow": served_split(srv, frames, SERVE_WINDOW,
+                                              **dict(fast_hs, return_flow=False))}
+        dpipe = VideoPipeline(fast, device=device)
+        dms = []
+        for k in range(SERVE_WINDOW):
+            t0 = time.perf_counter()
+            dpipe.push(frames[k % F])
+            torch.cuda.synchronize()
+            dms.append((time.perf_counter() - t0) * 1e3)
+        del dpipe
+        split["direct_push_synced"] = _quantiles(dms[3:])
+        log(f"[16 e split, {SERVE_WINDOW} frames] {json.dumps(split)}")
+
+        # (e) one traced window of served frames (pooled, with the flow):
+        # the device events of the server's thread, busy and idle share
+        with FlowClient(srv.address) as c:
+            c.start_stream(H, W, **fast_hs)
+            for f in frames[:3]:
+                c.push(f)
+            walls = []
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for f in frames[3 : 3 + SERVE_TRACED]:
+                    t0 = time.perf_counter()
+                    c.push(f)
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            c.end_stream()
+    finally:
+        srv.shutdown()
+    # the tracer sees the server thread's device work (None: not measured)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = _busy_ms([(e.time_range.start, e.time_range.end) for e in events]) if events else None
+    by_name = {}
+    for e in events:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+
+    # (c) `video --fast` and (d) `flow` as commands, their files in the
+    # checkout's git-ignored build/, deleted after
+    root = pathlib.Path(__file__).resolve().parent
+    work = root / "build" / "phase16"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        raw = work / "frames.raw"
+        np.stack(frames).tofile(raw)
+        video = subprocess.run(
+            [sys.executable, "-m", "optical_flow_tpu_torch", "video", "--input",
+             f"pipe:{W}x{H}:{raw}", "--fast", "--size", str(SIZE), "--frames", str(F),
+             "--metrics"], cwd=root, capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in video.stdout.splitlines() if ln.startswith("frame ")]
+        want = [f"frame {k}: votes={int(d.gesture.votes)} detected={bool(d.gesture.detected)} "
+                f"centroid=({float(d.gesture.cx):.1f},{float(d.gesture.cy):.1f})"
+                for k, d in enumerate(direct)]
+        metrics = [json.loads(ln) for ln in video.stderr.splitlines() if ln.startswith("{")]
+        counters = metrics[-1]["counters"] if metrics else {}
+        if (video.returncode != 0 or lines != want or "GUARD TRIPPED" in video.stdout
+                or counters.get("frames") != F - 2 or "guard_trips" in counters):
+            raise AssertionError(f"video --fast: rc {video.returncode}\n{video.stdout}\n"
+                                 f"{video.stderr[-2000:]}")
+        out["c"] = {"rc": video.returncode, "frame_lines": len(lines), "counters": counters,
+                    "frame_ms_mean": metrics[-1]["histograms"]["frame"]["mean_ms"]}
+        log(f"[16 c video --fast] {json.dumps(out['c'])}")
+
+        img1, img2 = shifted_pair(device, SIZE)
+        pngs = []
+        for name, img in (("a.png", img1), ("b.png", img2)):
+            Image.fromarray(np.clip(np.rint(img.cpu().numpy() * 255.0), 0, 255)
+                            .astype(np.uint8)).save(work / name)
+            pngs.append(str(work / name))
+        flow = subprocess.run(
+            [sys.executable, "-m", "optical_flow_tpu_torch", "flow", *pngs, "--out-prefix",
+             str(work / "cli"), "--flo", str(work / "cli.flo")], cwd=root, capture_output=True,
+            text=True, timeout=600)
+        if flow.returncode != 0:
+            raise AssertionError(f"flow: rc {flow.returncode}\n{flow.stdout}\n{flow.stderr[-2000:]}")
+        a, b_ = (torch.from_numpy(imread_gray(p).astype(np.float32) / 255.0).to(device)
+                 for p in pngs)
+        kernels.reset_launch_counts()
+        u, v = coarse_to_fine(a, b_, config=FlowConfig())
+        flow_counts = kernels.launch_counts()
+        save_mat(u, work / "direct_u.txt")
+        save_mat(v, work / "direct_v.txt")
+        fu, fv = load_flo(str(work / "cli.flo"))
+        same = {name: (work / f"cli_{name}.txt").read_bytes() == (work / f"direct_{name}.txt")
+                .read_bytes() for name in ("u", "v")}
+        flo_same = bool(np.array_equal(fu, u.cpu().numpy()) and np.array_equal(fv, v.cpu().numpy()))
+        if not (all(same.values()) and flo_same and np.isfinite(fu).all()
+                and (work / "cli_flow.png").stat().st_size > 0):
+            raise AssertionError(f"flow: text files equal {same}, .flo equal {flo_same}")
+        inner = (slice(8, -8), slice(8, -8))
+        epe = float(torch.hypot(u[inner] - SHIFT[0], v[inner] - SHIFT[1]).median())
+        out["d"] = {"rc": flow.returncode, "txt_equal_direct": same, "flo_equal_direct": flo_same,
+                    "launches": {k: n for k, n in flow_counts.items() if n},
+                    "median_epe_to_the_shift_px": epe, "line": flow.stdout.splitlines()[0]}
+        log(f"[16 d flow] {json.dumps(out['d'])} (reference mode, the CLI's default: the flow "
+            f"is not doubled between levels, so it is not the pair's displacement; phase 5 "
+            f"holds the corrected controller to the shift)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    steady = slice(3, None)
+    out["e"] = {
+        "served_ms_per_frame_with_flow_median": float(np.median(ms1[steady])),
+        "served_ms_per_frame_with_flow_pooled_median": float(np.median(ms2[steady])),
+        "served_ms_per_frame_without_flow_median": float(np.median(ms3[steady])),
+        "direct_push_ms_per_frame_median": float(np.median(direct_ms)),
+        "served_faithful_256_ms_per_frame_median": float(np.median(msf[steady])),
+        "direct_faithful_256_push_ms_per_frame_median": float(np.median(direct_f_ms)),
+        "first_result_s_new_pipeline": first1, "first_result_s_pooled": first2,
+        "split": split,
+        "flow_bytes_per_frame": 2 * SIZE * SIZE * 4,
+        "traced": {"frames": SERVE_TRACED, "wall_ms_per_frame": float(np.mean(walls)),
+                   "device_events_per_frame": len(events) / SERVE_TRACED,
+                   "device_busy_ms_per_frame": None if busy is None else busy / SERVE_TRACED,
+                   "idle_share": None if busy is None else 1.0 - busy / float(np.sum(walls)),
+                   "top_device_ms": top},
+        "memory_allocated_bytes": {"before": mem[0], "one_pooled_fast_pipeline": mem[1] - mem[0],
+                                   "second_pooled_fast_pipeline": mem[2] - mem[1]},
+        "memory_reserved_bytes": torch.cuda.memory_reserved(device),
+    }
+    log(f"[16 e time] {json.dumps(out['e'])}")
+    return out, pooled_counts, served_f, mesh_counts
+
+
 def pyramid_graph_capture(device):
     """Whether the pyramid's grids (programmatic dependent launch between its
     levels) can be captured into a CUDA graph and replayed on new input
@@ -2991,6 +3453,9 @@ def main() -> int:
     _, vi_counts, slam_imu_counts = phase_vi(device, maps)
     log(f"[15 vi] the visual-inertial back end passes ({time.perf_counter() - t15:.1f} s)")
     del maps
+    t16 = time.perf_counter()
+    _, serve_counts, serve_faithful_counts, serve_mesh_counts = phase_serve(device, frames)
+    log(f"[16 serve] the served path passes ({time.perf_counter() - t16:.1f} s)")
     per_kernel["pyrup_warp_lk"]["by_shape"] += k3_c12
     del stream_results, ref_results
     per_kernel["pyramid"]["graph_capture"] = pyramid_graph_capture(device)
@@ -3040,7 +3505,8 @@ def main() -> int:
             "reference": ref["launches"], "probes": prb["launches"],
             "track": track_counts, "shift_controller": shift_counts, "sfm": sfm_counts,
             "slam": slam_counts, "stereo": stereo_counts, "vi": vi_counts,
-            "slam_imu": slam_imu_counts}
+            "slam_imu": slam_imu_counts, "serve": serve_counts,
+            "serve_faithful": serve_faithful_counts, "serve_mesh": serve_mesh_counts}
     missing = [name for name, (entries, run, _, _) in meta.items()
                if any(runs[run][e] == 0 for e in entries)]
     if missing:
@@ -3066,6 +3532,13 @@ def main() -> int:
     # --imu launches K2 as the mapper does (exactly, asserted in the phase)
     if any(runs["vi"].values()) or not runs["slam_imu"]["oft_pyramid"]:
         raise AssertionError(f"phase 15 launches: VI {runs['vi']}, slam --imu {runs['slam_imu']}")
+    # phase 16's runs: a served fast stream launches what phase 4's does (K2,
+    # K1, K3, exactly, asserted in the phase), a faithful one K1 and S1, a
+    # mesh-served one what phase 7's does (K5, P1)
+    if runs["serve"] != runs["stream"] or runs["serve_mesh"] != runs["mesh_stream"] or not (
+            runs["serve_faithful"]["oft_lk"] and runs["serve_faithful"]["oft_pyrup"]):
+        raise AssertionError(f"phase 16 launches: {runs['serve']}, {runs['serve_faithful']}, "
+                             f"{runs['serve_mesh']}")
 
     # the probes' own rows: the first variant's time; all variants beside it
     first = {"interleave": "cols_float2", "colsum": "smem", "mul_add_chain": "f32"}

@@ -10,17 +10,22 @@ Layer map:
   ops/        dense tensor ops with OpenCV-faithful numerics
   kernels/    K1-K5, P1, S1 and the probes S2-S4 as CUDA kernels (csrc/), with
               their plain PyTorch versions
-  utils/      kernel timing on the card, the roofline model, and the device an
-              entry point runs on
+  utils/      timing, tracing and rooflines on the card, the device an entry
+              point runs on, metrics, the guard, checkpoints, images, golden
+              files, visualisation and the evaluation formats
   flow/       single-level LK, the coarse-to-fine controller and Horn–Schunck
   parallel/   a grid of devices, halo exchange and the mesh-sharded controller
-  pipeline/   preprocess -> pyramidal flow -> gesture video pipeline
+  pipeline/   preprocess -> pyramidal flow -> gesture video pipeline, and the
+              server that answers frame streams over a socket (serve.py)
+  io/         video decode, prefetch to the card, annotated video output and
+              the live MJPEG preview
   track/      sparse tracking: Shi–Tomasi corners, pyramidal sparse LK, RANSAC
               homography (reference of.cpp)
   slam/       structure from motion: essential matrix, PnP, bundle
               adjustment, the windowed mapper, two- and multi-view
               reconstruction (the rest of the JAX package's slam/ follows)
-  __main__.py the command line (``python -m optical_flow_tpu_torch track``)
+  __main__.py the command line (``python -m optical_flow_tpu_torch
+              {flow,video,track,slam,serve}``)
   convert.py  configurations, streaming state and a mesh's shape from the JAX package
 """
 

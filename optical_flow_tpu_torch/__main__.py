@@ -1,5 +1,11 @@
 """Command line of the port (``python -m optical_flow_tpu_torch``).
 
+    python -m optical_flow_tpu_torch flow IMAGE1 IMAGE2 [--impl auto]
+        [--levels N] [--single-level] [--out-prefix P] [--flo OUT.flo]
+        [--device cuda]
+    python -m optical_flow_tpu_torch video --input VIDEO [--frames 16]
+        [--size 256] [--impl auto] [--fast] [--metrics] [--annotate OUT]
+        [--fps 30] [--preview PORT] [--gray-decode] [--device cuda]
     python -m optical_flow_tpu_torch track --input VIDEO [--frames 8]
         [--corners 500] [--device cuda]
     python -m optical_flow_tpu_torch slam --input VIDEO [--frames 20]
@@ -7,6 +13,31 @@
         [--kf-disparity 6] [--stereo-sbs BASELINE] [--out OUT.npz]
         [--out-tum TRAJ.txt] [--eval-tum REF.txt] [--video-fps 30]
         [--imu LOG.npz [--no-accel-bias] [--imu-bias-states]] [--device cuda]
+    python -m optical_flow_tpu_torch serve [--host 127.0.0.1] [--port 7070]
+        [--unix PATH] [--device cuda]
+
+Every subcommand runs on ``--device``, the card unless another device is
+named (``--device cpu`` stands for the JAX CLI's ``--cpu``); without a card
+it raises. ``--impl`` takes the port's names (``auto``, ``torch``,
+``cuda``) and the JAX package's (``jnp`` = ``torch``, ``pallas`` =
+``cuda``).
+
+``flow`` is dense flow between two images (the reference's serialOrig /
+SerialPyr mains): ``coarse_to_fine`` with ``FlowConfig(impl, levels)``,
+reference mode (on the card K1 at every level, S1 between levels), or one
+level of ``lucas_kanade`` with ``--single-level``; ``--out-prefix`` writes
+the flow in the reference's saveMat text format (``_u.txt``, ``_v.txt``)
+and as a colour image (``_flow.png``), ``--flo`` as Middlebury ``.flo``.
+
+``video`` is the gesture tracker of the reference's ParallelVideoPyr main:
+``VideoPipeline`` over the frames (``VideoConfig()`` at ``--size``, or with
+``--fast`` exactly ``VideoConfig.fast(size=(s, s))`` with only ``impl``
+replaced), one ``frame i:`` line a result, each checked by ``FlowGuard``
+(``GUARD TRIPPED`` lines; a stall watchdog of 600 s, which covers the
+kernels' build at the first frame); ``--metrics`` writes one JSON line of
+counters and timers to stderr, ``--annotate`` the frames with the
+detection circle (a video file, or PNGs into a directory), ``--preview`` a
+live MJPEG stream of them over HTTP.
 
 ``track`` is the sparse tracker of the reference's of.cpp, as the JAX
 package's ``track`` subcommand runs it: Shi–Tomasi corners on the first
@@ -30,14 +61,137 @@ rad/s and ``accel`` (N, 3) m/s^2, body == camera; keyframes timestamped
 ``frame * stride / video_fps``) with ``slam.refine_slam_with_imu``: bias
 estimation, linear alignment, joint VI-BA; the trajectory and map come out
 METRIC. ``--no-accel-bias`` skips the accelerometer bias (rotation-poor
-logs), ``--imu-bias-states`` carries 15-DOF bias states. The JAX package's
-other subcommands (flow, video, serve, bench) are not ported yet.
+logs), ``--imu-bias-states`` carries 15-DOF bias states.
+
+``serve`` is the resident flow/gesture server (``pipeline/serve.py``, wire
+protocol version 1): it keeps built pipelines and their CUDA graphs hot and
+answers frame streams over TCP or a Unix socket. The JAX CLI's ``bench``
+waits for the port's benchmark.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+from optical_flow_tpu_torch.config import IMPL_NAMES
+
+
+def _cmd_flow(args) -> None:
+    import numpy as np
+
+    from optical_flow_tpu_torch.config import FlowConfig, impl_from_name
+    from optical_flow_tpu_torch.flow.coarse_to_fine import coarse_to_fine
+    from optical_flow_tpu_torch.flow.lk import lucas_kanade
+    from optical_flow_tpu_torch.utils.device import as_tensor, canonical_device, host_array
+    from optical_flow_tpu_torch.utils.goldens import save_mat
+    from optical_flow_tpu_torch.utils.images import imread_gray
+    from optical_flow_tpu_torch.utils.viz import flow_to_color, save_png
+
+    device = canonical_device(args.device)
+    impl = impl_from_name(args.impl)
+    a = as_tensor(imread_gray(args.image1).astype(np.float32) / 255.0, device)
+    b = as_tensor(imread_gray(args.image2).astype(np.float32) / 255.0, device)
+    if args.single_level:
+        u, v = lucas_kanade(a, b, impl=impl)
+    else:
+        u, v = coarse_to_fine(a, b, config=FlowConfig(impl=impl, levels=args.levels))
+    u, v = host_array(u).astype(np.float64), host_array(v).astype(np.float64)
+    mag = np.sqrt(u * u + v * v)
+    print(f"flow {u.shape[1]}x{u.shape[0]}: mean |flow| {mag.mean():.4f} px, max {mag.max():.4f} px")
+    if args.out_prefix:
+        save_mat(u, args.out_prefix + "_u.txt")
+        save_mat(v, args.out_prefix + "_v.txt")
+        save_png(flow_to_color(u, v), args.out_prefix + "_flow.png")
+        print(f"wrote {args.out_prefix}_{{u,v}}.txt and _flow.png")
+    if args.flo:
+        from optical_flow_tpu_torch.utils.interop import save_flo
+
+        save_flo(args.flo, u, v)
+        print(f"wrote {args.flo} (Middlebury .flo)")
+
+
+def _run_video(args) -> None:
+    from optical_flow_tpu_torch.io.video_reader import read_frames
+    from optical_flow_tpu_torch.config import video_config_for
+    from optical_flow_tpu_torch.pipeline.video import VideoPipeline
+    from optical_flow_tpu_torch.utils.guard import FlowGuard, NumericalFailure
+    from optical_flow_tpu_torch.utils.metrics import Metrics
+
+    if args.gray_decode and args.annotate:
+        # validate before any side effect (VideoWriter makes its output directory)
+        sys.exit("--gray-decode and --annotate are mutually exclusive "
+                 "(the overlay draws on the original BGR frame)")
+    # the server's presets (the JAX CLI's --fast rebuilds the flow
+    # configuration and so runs pyr_impl='poly'; the port keeps the preset's)
+    cfg = video_config_for("fast" if args.fast else "faithful", (args.size, args.size), args.impl)
+    pipe = VideoPipeline(cfg, device=args.device)
+    # generous: the first frame includes the kernels' nvcc build
+    guard = FlowGuard(stall_timeout_s=600.0)
+    metrics = Metrics(sink=sys.stderr if args.metrics else None)
+    writer = preview = None
+    if args.annotate:
+        from optical_flow_tpu_torch.io.video_writer import VideoWriter
+
+        writer = VideoWriter(args.annotate, fps=args.fps)
+    if args.preview is not None:
+        # live view (the reference's imshow surface, headless): a
+        # browser-watchable MJPEG stream of the annotated frames
+        from optical_flow_tpu_torch.io.preview import MjpegPreview
+
+        preview = MjpegPreview(port=args.preview)
+        print(f"live preview at {preview.url}", file=sys.stderr)
+    # push() frame by frame so that each result is drawn onto its own
+    # frame, the reference's live overlay (ParallelVideoPyr.cpp:884-891)
+    i = -1
+    stop_watchdog = guard.start_watchdog()
+    try:
+        for frame in read_frames(args.input, max_frames=args.frames, gray=args.gray_decode):
+            res = pipe.push(frame)
+            if res is None:
+                continue
+            i += 1
+            with metrics.timer("frame"):
+                g = res.gesture
+                try:
+                    guard.check(res.u, res.v, context=f"frame {i}")
+                except NumericalFailure as e:
+                    print(f"frame {i}: GUARD TRIPPED: {e}")
+                    metrics.count("guard_trips")
+                    continue
+                metrics.count("frames")
+                if bool(g.detected):
+                    metrics.count("detections")
+                print(f"frame {i}: votes={int(g.votes)} detected={bool(g.detected)} "
+                      f"centroid=({float(g.cx):.1f},{float(g.cy):.1f})")
+                if writer is not None or preview is not None:
+                    from optical_flow_tpu_torch.utils.viz import annotate_gesture_frame
+
+                    rgb = annotate_gesture_frame(frame, g, cfg.preprocess.size,
+                                                 cfg.gesture.circle_radius)
+                    if writer is not None:
+                        writer.write(rgb)
+                    if preview is not None:
+                        preview.push(rgb)
+    finally:
+        stop_watchdog()
+        if preview is not None:
+            preview.close()
+    if writer is not None:
+        writer.close()
+        print(f"wrote {writer.frames_written} annotated frames to {args.annotate}")
+    metrics.emit()
+
+
+def _cmd_serve(args) -> None:
+    from optical_flow_tpu_torch.pipeline.serve import FlowServer
+
+    srv = FlowServer(host=args.host, port=args.port, unix_path=args.unix, device=args.device)
+    print(f"serving flow/gesture streams on {srv.address}", flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        srv.shutdown()
 
 
 def _cmd_track(args) -> None:
@@ -189,6 +343,43 @@ def _refine_with_imu(args, log, res, focal, kf_ts, device):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m optical_flow_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("flow", help="dense optical flow between two images")
+    p.add_argument("image1")
+    p.add_argument("image2")
+    p.add_argument("--impl", default="auto", choices=list(IMPL_NAMES))
+    p.add_argument("--levels", type=int, default=None)
+    p.add_argument("--single-level", action="store_true")
+    p.add_argument("--out-prefix", default=None)
+    p.add_argument("--flo", default=None, metavar="OUT.flo",
+                   help="also write the flow as Middlebury .flo (utils/interop.py)")
+    p.add_argument("--device", default="cuda", help="torch device (default: the card)")
+    p.set_defaults(fn=_cmd_flow)
+
+    p = sub.add_parser("video", help="video gesture tracking")
+    p.add_argument("--input", required=True,
+                   help="video file, camera (0 / device:0 / /dev/video0) or pipe:WxH[@FPS]:PATH")
+    p.add_argument("--frames", type=int, default=16)
+    p.add_argument("--size", type=int, default=256)
+    p.add_argument("--impl", default="auto", choices=list(IMPL_NAMES))
+    p.add_argument("--metrics", action="store_true", help="emit JSONL metrics to stderr")
+    p.add_argument("--fast", action="store_true",
+                   help="production preset: VideoConfig.fast (displacement-true flow, "
+                   "clamped separable warp, pyramid reuse; parity quirks off)")
+    p.add_argument("--annotate", default=None, metavar="OUT",
+                   help="write an annotated output video (detection circle drawn on each "
+                   "frame, the reference's imshow overlay) to OUT.mp4, or to a PNG "
+                   "directory if OUT has no extension")
+    p.add_argument("--fps", type=float, default=30.0, help="annotated output fps")
+    p.add_argument("--preview", type=int, default=None, metavar="PORT",
+                   help="serve a live MJPEG preview of the annotated frames at "
+                   "http://host:PORT/ (0 = ephemeral port); never stalls the pipeline "
+                   "(io/preview.py)")
+    p.add_argument("--gray-decode", action="store_true",
+                   help="decode to GRAY8 instead of BGR (a third of the bytes to the "
+                   "device); incompatible with --annotate")
+    p.add_argument("--device", default="cuda", help="torch device (default: the card)")
+    p.set_defaults(fn=_run_video)
+
     p = sub.add_parser("track", help="sparse feature tracking")
     p.add_argument("--input", required=True)
     p.add_argument("--frames", type=int, default=8)
@@ -235,6 +426,16 @@ def main(argv=None) -> int:
                    "random-walk coupling, for logs long enough that the biases drift")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     p.set_defaults(fn=_cmd_slam)
+
+    p = sub.add_parser("serve", help="long-running flow/gesture server: keeps built "
+                       "pipelines hot and answers frame streams over TCP or a Unix socket "
+                       "(pipeline/serve.py wire protocol)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=7070)
+    p.add_argument("--unix", default=None, metavar="PATH",
+                   help="serve on a Unix-domain socket instead of TCP")
+    p.add_argument("--device", default="cuda", help="torch device (default: the card)")
+    p.set_defaults(fn=_cmd_serve)
     args = ap.parse_args(argv)
     args.fn(args)
     return 0

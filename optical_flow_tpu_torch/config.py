@@ -15,13 +15,28 @@ the port's values:
   else ``'gather'``).
 
 Nothing here switches a global backend: every choice is made per call from
-the tensor's device.
+the tensor's device. Where a user or a client may name ``impl`` in either
+package's words (the server's handshake, the CLI's ``--impl``),
+``impl_from_name`` reads the JAX package's ``'jnp'`` as ``'torch'`` and
+``'pallas'`` as ``'cuda'``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+# FlowConfig.impl by the names either package gives it
+IMPL_NAMES = {"auto": "auto", "torch": "torch", "cuda": "cuda", "jnp": "torch", "pallas": "cuda"}
+
+
+def impl_from_name(name: str) -> str:
+    """The port's ``FlowConfig.impl`` for ``name``, a name of the port's or
+    of the JAX package's (``'jnp'``, ``'pallas'``)."""
+    try:
+        return IMPL_NAMES[name]
+    except KeyError:
+        raise ValueError(f"unknown impl {name!r} (want one of {', '.join(IMPL_NAMES)})") from None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +112,26 @@ class VideoConfig:
     faithful_prev_diff: bool = True
     # Frames processed together as a batch.
     batch: int = 1
+
+
+def video_config_for(preset: str, proc_size: Tuple[int, int], impl: str = "auto") -> VideoConfig:
+    """The VideoConfig of a named preset, as the server's handshake and the
+    ``video`` CLI name it: ``'fast'`` is ``VideoConfig.fast(size=proc_size)``
+    with only ``impl`` replaced (every other knob stays the preset's);
+    ``'faithful'`` is the reference-parity ``VideoConfig()`` at
+    ``proc_size``. ``impl`` takes either package's names."""
+    impl = impl_from_name(impl)
+    if preset == "fast":
+        cfg = VideoConfig.fast(size=proc_size)
+        if impl != "auto":
+            cfg = dataclasses.replace(cfg, flow=dataclasses.replace(cfg.flow, impl=impl))
+        return cfg
+    if preset == "faithful":
+        return VideoConfig(
+            preprocess=PreprocessConfig(size=proc_size),
+            flow=FlowConfig(impl=impl),
+        )
+    raise ValueError(f"unknown preset {preset!r} (want 'fast' or 'faithful')")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,8 @@
 """Video/gesture application pipeline (reference L4): preprocess,
 pyramidal LK on consecutive preprocessed frames, gesture detection; the
-steady steps replayed as CUDA graphs on a card (pipeline/graphs.py)."""
+steady steps replayed as CUDA graphs on a card (pipeline/graphs.py); the
+server that keeps pipelines hot and answers frame streams over a socket
+(pipeline/serve.py)."""
 
 from optical_flow_tpu_torch.pipeline.preprocess import (
     dilate3x3,

@@ -166,12 +166,18 @@ class VideoPipeline:
     def _upload(self, frame) -> torch.Tensor:
         """A frame (or a batch) as a tensor on the pipeline's device. From the
         host to a card it is staged in pinned memory and copied without
-        blocking the host."""
+        blocking the host. A read-only host array (``np.frombuffer`` of a
+        socket payload) is copied, never wrapped in place."""
         if isinstance(frame, torch.Tensor) and frame.device == self.device:
             return frame
         if self.device.type == "cuda" and not (isinstance(frame, torch.Tensor) and frame.is_cuda):
             return pinned_copy(frame).to(self.device, non_blocking=True)
-        return torch.as_tensor(frame).to(self.device)
+        if not isinstance(frame, torch.Tensor):
+            a = np.asarray(frame)
+            if not (a.flags.writeable and a.flags.c_contiguous):
+                a = np.array(a, order="C")
+            frame = torch.from_numpy(a)
+        return frame.to(self.device)
 
     def _preprocess(self, frame) -> torch.Tensor:
         frame = self._upload(frame)

@@ -1,10 +1,18 @@
-"""Kernel timing and rooflines on the card (port of the parts of
-optical_flow_tpu/utils/profiling.py that the kernel tables need).
+"""Timing, tracing and rooflines on the card (port of
+optical_flow_tpu/utils/profiling.py).
 
+- ``Timer``: wall-clock segment timers; ``segment(name, sync=tensors)``
+  synchronises the tensors' devices at the segment's end, so the segment
+  covers completed device work (without it, the enqueue only).
 - ``time_use_once``: device ms per call from CUDA events over many
   back-to-back launches, each on inputs used once. The launches are queued
   behind a device sleep, so the device runs them without waiting on the
   host even where one call is shorter than a launch's host cost.
+  ``device_loop_time`` is the JAX package's name for it: seconds per call
+  on perturbed copies of the first input.
+- ``trace``: a ``torch.profiler`` trace written as a Chrome trace file;
+  ``device_seconds_from_trace`` sums the device spans of the kernels of a
+  name in it (None when the trace missed calls).
 - ``kernel_cost``: the bytes and operations of one call of a kernel, from
   its tensors and shapes. Each input byte is counted read once and each
   output byte written once; the operations are counted from the kernel's
@@ -15,6 +23,8 @@ optical_flow_tpu/utils/profiling.py that the kernel tables need).
   their type, against the H100's published peaks (``H100``); where given,
   also the time at the rates the probes sustained on the card (S2's copy
   rate, S4's float32 elementwise rate, both at a size that fills the card).
+  ``flow_roofline`` is the same bound for one dense LK level (K1) of an
+  h x w frame.
 
 A timing without a card raises: no number of this module comes from the
 CPU.
@@ -22,7 +32,10 @@ CPU.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, NamedTuple, Optional, Sequence
 
 import torch
@@ -162,3 +175,130 @@ def time_use_once(fn: Callable, arg_sets: Sequence[tuple], device="cuda") -> flo
             sleep_ms = 2 * max(sleep_ms, queued_ms)
     raise RuntimeError("time_use_once: the host never queued the calls within the device sleep "
                        "(more launches than the launch queue holds?)")
+
+
+def flow_roofline(h: int, w: int, *, bytes_per_s: float = H100["bytes_per_s"],
+                  ops_per_s: float = H100["ops_per_s"][torch.float32]) -> Dict[str, object]:
+    """The least time of one dense LK level (kernel K1) on an h x w float32
+    pair, costed as the kernel table costs K1 (``kernel_cost('lk')`` through
+    ``stage_roofline``) and keyed as the JAX package keys it; the H100's
+    published peaks unless other rates are given."""
+    a = torch.empty(h, w, device="meta")
+    cost = kernel_cost("lk", [a, a], [a, a])
+    r = stage_roofline(cost, rates={"bytes_per_s": bytes_per_s,
+                                    "ops_per_s": {torch.float32: ops_per_s}})
+    return {
+        "bytes": cost.bytes,
+        "flops": cost.ops,
+        "t_mem_us": 1e6 * cost.bytes / bytes_per_s,
+        "t_compute_us": 1e6 * cost.ops / ops_per_s,
+        "sol_us": 1e3 * r["sustained_ms"],
+        "sol_fps": 1e3 / r["sustained_ms"],
+        "bound": "memory" if r["sustained_by"] == "bytes" else "compute",
+    }
+
+
+def _cuda_devices(tree) -> set:
+    """The CUDA devices of the tensors in a (nested) tuple, list or dict."""
+    if isinstance(tree, torch.Tensor):
+        return {tree.device} if tree.is_cuda else set()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return set().union(*(_cuda_devices(t) for t in tree))
+    return set()
+
+
+@dataclass
+class Timer:
+    """Named segment timers: ``with t.segment('solve', sync=out): ...``."""
+
+    segments: Dict[str, float] = field(default_factory=dict)
+    counts: Dict[str, int] = field(default_factory=dict)
+
+    @contextlib.contextmanager
+    def segment(self, name: str, sync=None):
+        """Time the block; ``sync`` (tensors, or a tuple, list or dict of
+        them) waits for their CUDA devices before the clock is read."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            for d in _cuda_devices(sync):
+                torch.cuda.synchronize(d)
+            dt = time.perf_counter() - t0
+            self.segments[name] = self.segments.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def report(self) -> str:
+        lines = []
+        for name, total in sorted(self.segments.items(), key=lambda kv: -kv[1]):
+            n = self.counts[name]
+            lines.append(f"{name:24s} {1e3 * total:9.3f} ms total  {1e3 * total / n:9.3f} ms/call x{n}")
+        return "\n".join(lines)
+
+
+def device_loop_time(fn: Callable, args: Sequence, iters: int = 30) -> float:
+    """Seconds per call of ``fn(*args)`` on the card: ``time_use_once`` over
+    ``iters`` calls, each on a copy of the first argument (a floating
+    tensor on the card) perturbed by ``i * 1e-7``, so no two calls read the
+    same input."""
+    x, rest = args[0], tuple(args[1:])
+    sets = [(x + i * 1e-7, *rest) for i in range(iters + 1)]
+    return time_use_once(fn, sets, device=x.device) / 1e3
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None):
+    """``torch.profiler`` over the block (CPU activity, and CUDA where a card
+    is present), written on exit as a Chrome trace, ``log_dir/trace.json``
+    (a new temporary directory if none is given); yields ``log_dir``."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = log_dir or tempfile.mkdtemp(prefix="optical_flow_trace_")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# Chrome-trace categories of spans that ran on the device
+_DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_seconds_from_trace(trace_dir: str, fn_name: str,
+                              expected_calls: int) -> Optional[float]:
+    """Sum of the device spans whose name contains ``fn_name`` (a kernel's
+    name) in the Chrome traces under ``trace_dir`` (``trace``'s files);
+    None if the trace is unusable or holds fewer than ``expected_calls``
+    such spans (a CPU trace holds none)."""
+    import glob
+    import gzip
+    import json
+
+    files = glob.glob(os.path.join(trace_dir, "**", "*.json"), recursive=True) + glob.glob(
+        os.path.join(trace_dir, "**", "*.json.gz"), recursive=True)
+    if not files:
+        return None
+    total_us, calls = 0.0, 0
+    for path in files:
+        opener = gzip.open if path.endswith(".gz") else open
+        try:
+            with opener(path, "rt") as f:
+                tr = json.load(f)
+        except (OSError, ValueError):
+            return None
+        events = tr.get("traceEvents", []) if isinstance(tr, dict) else tr
+        for e in events:
+            if (e.get("ph") == "X" and e.get("cat") in _DEVICE_CATEGORIES
+                    and fn_name in e.get("name", "")):
+                total_us += float(e.get("dur", 0))
+                calls += 1
+    if calls < expected_calls:  # the trace missed executions
+        return None
+    return total_us / 1e6

@@ -37,6 +37,11 @@ def test_import_pulls_in_no_jax():
         "import optical_flow_tpu_torch.slam.descriptors, optical_flow_tpu_torch.slam.pose_graph\n"
         "import optical_flow_tpu_torch.slam.stereo, optical_flow_tpu_torch.slam.incremental\n"
         "import optical_flow_tpu_torch.utils.interop\n"
+        "import optical_flow_tpu_torch.pipeline.serve, optical_flow_tpu_torch.io.preview\n"
+        "import optical_flow_tpu_torch.io.video_writer, optical_flow_tpu_torch.utils.metrics\n"
+        "import optical_flow_tpu_torch.utils.guard, optical_flow_tpu_torch.utils.images\n"
+        "import optical_flow_tpu_torch.utils.viz, optical_flow_tpu_torch.utils.goldens\n"
+        "import optical_flow_tpu_torch.utils.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'optical_flow_tpu' or m.startswith('optical_flow_tpu.'))\n"
         "assert not bad, bad\n"
@@ -160,6 +165,29 @@ def test_exports_cover_the_jax_package():
     for module in ("epipolar", "pnp", "ba", "window", "frontend", "descriptors", "pose_graph",
                    "stereo", "incremental", "imu", "vi_ba"):
         assert (PKG / "slam" / f"{module}.py").exists()
+    # the serving path and the CLI surfaces: every public name of JAX's
+    # module, under the same module path; utils/compat.py (the TPU runtime's
+    # persistent compile cache and codec/compile deadlock workaround) has no
+    # counterpart
+    import importlib
+
+    for module in ("pipeline.serve", "io.preview", "io.video_writer", "utils.metrics",
+                   "utils.guard", "utils.images", "utils.viz", "utils.goldens",
+                   "utils.checkpoint", "utils.profiling"):
+        jm = importlib.import_module(f"optical_flow_tpu.{module}")
+        tm = importlib.import_module(f"optical_flow_tpu_torch.{module}")
+        names = {n for n, v in vars(jm).items() if not n.startswith("_") and (
+            getattr(v, "__module__", None) == jm.__name__ or n.isupper())}
+        missing = sorted(n for n in names if not hasattr(tm, n))
+        assert not missing, (module, missing)
+    from optical_flow_tpu.pipeline import serve as j_serve
+    from optical_flow_tpu_torch.pipeline import serve as t_serve
+
+    for name in ("PROTOCOL_VERSION", "MAX_FRAME_BYTES", "MAX_PROC_DIM"):
+        assert getattr(t_serve, name) == getattr(j_serve, name), name
+    assert t_serve._PipelinePool.MAX_FREE_PER_KEY == j_serve._PipelinePool.MAX_FREE_PER_KEY == 4
+    assert callable(t_serve._make_config)
+    assert not (PKG / "utils" / "compat.py").exists()
 
 
 def _jax_track_configs():

@@ -315,6 +315,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
     pipe = TVideoPipeline(tc, device="cpu")
     assert pipe.device == torch.device("cpu")
     assert [pipe.push(f) for f in _frames(3)][-1] is not None
+    # the server and the CLI's flow, video and serve: the card by default,
+    # raising before any file, frame or socket is touched
+    from optical_flow_tpu_torch.__main__ import main as cli
+    from optical_flow_tpu_torch.pipeline.serve import FlowServer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FlowServer(port=0)
+    for argv in (["flow", "no-such-a.png", "no-such-b.png"],
+                 ["video", "--input", "pipe:8x8:no-such-file"], ["serve", "--port", "0"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli(argv)
+    srv = FlowServer(port=0, device="cpu")
+    assert srv.device == torch.device("cpu")
+    srv.shutdown()
 
 
 # ---------------------------------------------------- on the card (marked)
