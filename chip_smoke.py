@@ -3,11 +3,16 @@
 unsharded and on a 2x2 tile mesh, and the reference-parity default
 configuration), the sparse tracker, Horn-Schunck, the exact 'shift' warp,
 structure from motion, the mapper (incremental SLAM, stereo, the slam CLI),
-the visual-inertial back end (IMU preintegration, VI-BA, slam --imu) and
-the serving path (FlowServer answering socket streams, the CLI's video and
-flow) once on an NVIDIA GPU, and run the probes S2-S4.
+the visual-inertial back end (IMU preintegration, VI-BA, slam --imu), the
+serving path (FlowServer answering socket streams, the CLI's video and
+flow) and the mesh across processes (the sharded bundle adjustments, two
+ranks joined by torch.distributed, dryrun_multichip) once on an NVIDIA
+GPU, and run the probes S2-S4.
 
     python3 chip_smoke.py
+
+(``python3 chip_smoke.py --rank PORT RANK`` and ``--gloo-send PORT RANK``
+are ranks of phase 17 (c), started by the script itself.)
 
 Phases, each printing one line (any failure raises and exits non-zero):
   1. device: the card's name and its nvidia-smi name/power-limit line;
@@ -175,7 +180,32 @@ Phases, each printing one line (any failure raises and exits non-zero):
      frames split into the client's send, the server's push and D2H, the
      rest of the wait and the flow's receipt; the time to a first result
      of a new and a pooled pipeline, device events, busy ms and idle share
-     of traced served frames, and the memory a pooled pipeline holds.
+     of traced served frames, and the memory a pooled pipeline holds;
+ 17. the mesh across processes: (a) sharded_bundle_adjust on 13 (c)'s
+     problem (float64, 60,000 observations) over 8 shards of a (2, 2, 2)
+     mesh that repeats the card, and its Huber solve on the 5% outliers,
+     each within 1e-8 (relative) of bundle_adjust on the card, the rmse
+     falling 10x, no kernel launched; (b) sharded_vi_bundle_adjust on 15
+     (a)'s problem (float32), 9 and 15 DOF, over the same mesh, at 15 (a)'s
+     bars and within its card-vs-CPU bars (1e-3 m, 1e-4 of scale) of
+     vi_bundle_adjust on the card, max |d| printed; (c) two ranks of this
+     script started together, joined by initialize_distributed over gloo
+     on loopback (NCCL refuses two ranks on one card; CUDA tensors cross
+     through pinned host memory): host_local_frames and make_global_batch
+     of phase 4's frames as 1080^2 grays, sharded_lucas_kanade on a (4, 2,
+     1) mesh bit for bit with the unsharded LK, a global mean across the
+     ranks within 1e-9, sharded_coarse_to_fine of the fast configuration
+     on phase 5's pair on a (1, 2, 2) mesh whose rows lie on the two ranks
+     bit for bit with the unsharded controller, with each rank's exact
+     launch counts (K2 2, K1 1 and K3 1 whole at 135^2 and 270^2, K5 4, P1
+     2), and 13 (c)'s BA with its 8 shards over both ranks within (a)'s
+     bar; each rank prints its backend, its rank, its checks, its ms per
+     call beside the unsharded call's, and the bytes it hands to the group
+     (per GN iteration: a 6- less a 5-iteration solve); then, reported,
+     what gloo does with a CUDA tensor sent point to point; (d)
+     dryrun_multichip(4) on the card; (e) ms per call, device busy and
+     idle share of one traced call of (a) and of its unsharded
+     counterpart, and (b)'s times.
 Phase 3 also holds S1 at the three upsamples of a 1080^2 frame, and over
 a ragged sweep at odd and even coarse widths on both sides of its
 launcher's strip rule, bit for bit, and K1 at every level of the reference path, and times the one
@@ -185,8 +215,9 @@ grids (one a level, programmatic dependent launch) can be captured into a
 CUDA graph (reported, not required). Launch counters are reset just before
 the runs of phases 4, 5, 7, 8, 9, 10, 11 (c), 12 (a), 12 (d), 13 (a), 14 (a),
 14 (c), 15 (a) and (b) together, 15 (c), 16 (a) (the served steady frames,
-and the pooled stream) and 16 (b) (the faithful stream), and read just
-after each. Then one
+and the pooled stream), 16 (b) (the faithful stream), 17 (a) and 17 (d),
+and in each rank of 17 (c) before its LK and its controller run, and read
+just after each. Then one
 JSON line with the kernels (each with its least time on the card, from
 utils/profiling's byte and operation model against the published H100
 peaks, its time at the rates phase 10 sustained, its device time on
@@ -274,7 +305,9 @@ RUNS = {"stream": "VideoPipeline.push (phase 4)",
         "slam_imu": "slam --imu, 10 frames of 720x1280 (phase 15 c)",
         "serve": "FlowServer, fast stream at 1080^2 over TCP, pooled (phase 16 a)",
         "serve_faithful": "FlowServer, faithful stream at 256^2 (phase 16 b)",
-        "serve_mesh": "FlowServer(mesh=2x2 tile mesh), fast stream at 1080^2 (phase 16 a)"}
+        "serve_mesh": "FlowServer(mesh=2x2 tile mesh), fast stream at 1080^2 (phase 16 a)",
+        "ranks": "sharded_coarse_to_fine, fast, 2x2 mesh whose rows lie on two ranks, rank 0 "
+                 "(phase 17 c)"}
 PROFILE_WARMUP, PROFILE_FRAMES = 5, 40
 REFERENCE_PROFILE_FRAMES = 20
 HOST_WARM, HOST_TIMED = 5, 30  # phase 11 (e): frames before and inside the timed window
@@ -3226,6 +3259,341 @@ def phase_serve(device, frames):
     return out, pooled_counts, served_f, mesh_counts
 
 
+# ------------------------------------------ phase 17: the mesh across processes
+
+SHARD_MESH = (2, 2, 2)  # (a), (b): eight shards, every slot the one card
+RANKS = 2
+RANK_MESH = (4, 2, 1)  # (c): frames ride the ranks, rank r holds frame indices 2r, 2r+1
+RANK_TIMEOUT_S = 300
+BA_ITERS, BA_LAM = 5, 1e-4  # phase 13 (c)'s solve
+
+
+def local_points(prob, n):
+    """A point-major problem (phase 13's and 15's scenes list each point's
+    observations together) in the sharded layout: pt_idx local to each of n
+    shards."""
+    return prob._replace(pt_idx=prob.pt_idx % (prob.points.shape[0] // n))
+
+
+def timed_ms(fn, n=3):
+    """Host ms per call of `fn` (synchronized), median of n after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def phase_sharded(device):
+    """Phase 17: the sharded solvers on one card, two ranks on the card, and
+    dryrun_multichip. Returns (summary, rank 0's launch counts of (c)'s
+    sharded_coarse_to_fine)."""
+    import torch
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.dryrun import dryrun_multichip
+    from optical_flow_tpu_torch.parallel import flow_mesh
+    from optical_flow_tpu_torch.slam import (
+        bundle_adjust,
+        reprojection_rmse,
+        sharded_bundle_adjust,
+        sharded_vi_bundle_adjust,
+        vi_bundle_adjust,
+    )
+
+    out = {}
+    mesh = flow_mesh(*SHARD_MESH, devices=[device] * int(np.prod(SHARD_MESH)))
+    n = mesh.size
+
+    # (a) sharded BA, float64, 60,000 observations over 8 shards of the card
+    prob, _ = ba_scene()
+    flat, _ = bundle_adjust(prob, iters=BA_ITERS, lam=BA_LAM, device=device)
+    kernels.reset_launch_counts()
+    sol, hist = sharded_bundle_adjust(local_points(prob, n), mesh, iters=BA_ITERS, lam=BA_LAM)
+    torch.cuda.synchronize()
+    ba_counts = kernels.launch_counts()
+    rmse0 = float(reprojection_rmse(prob))
+    rmse1 = float(reprojection_rmse(sol._replace(pt_idx=prob.pt_idx)))
+    res = {"shards": n, "observations": int(prob.obs.shape[0]), "rmse_before": rmse0,
+           "rmse_after": rmse1, "history": hist.tolist(),
+           "cams_rel_diff_vs_unsharded": rel_diff(sol.cams, flat.cams),
+           "points_rel_diff_vs_unsharded": rel_diff(sol.points, flat.points)}
+    bad, true_cams = ba_scene(outliers=0.05)
+    rob_flat, _ = bundle_adjust(bad, iters=BA_ITERS, lam=BA_LAM, robust_delta=2.0, device=device)
+    rob, _ = sharded_bundle_adjust(local_points(bad, n), mesh, iters=BA_ITERS, lam=BA_LAM,
+                                   robust_delta=2.0)
+    res["robust"] = {"cams_rel_diff_vs_unsharded": rel_diff(rob.cams, rob_flat.cams),
+                     "points_rel_diff_vs_unsharded": rel_diff(rob.points, rob_flat.points),
+                     "cam_err": float(np.abs(rob.cams[:, 3:].cpu().numpy() - true_cams[:, 3:]).max())}
+    if not (rmse1 < 0.1 * rmse0 and res["cams_rel_diff_vs_unsharded"] <= 1e-8
+            and res["points_rel_diff_vs_unsharded"] <= 1e-8
+            and res["robust"]["cams_rel_diff_vs_unsharded"] <= 1e-8
+            and res["robust"]["points_rel_diff_vs_unsharded"] <= 1e-8
+            and res["robust"]["cam_err"] < 0.15 and not any(ba_counts.values())):
+        raise AssertionError(f"sharded_bundle_adjust on the card: {res}, launches {ba_counts}")
+    out["a"] = res
+    log(f"[17 a sharded_bundle_adjust] {json.dumps(res)}")
+
+    # (b) sharded VI-BA, float32, phase 15 (a)'s scene and start, 9 and 15 DOF
+    sc = vi_scene()
+    res = {}
+    for dof, bias in (("9dof", False), ("15dof", True)):
+        vprob = vi_problem(sc, device, bias_jac=bias)
+        t0 = time.perf_counter()
+        vflat, vflat_hist = vi_bundle_adjust(vprob, iters=12, lam=1e-4)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vsol, vhist = sharded_vi_bundle_adjust(local_points(vprob, n), mesh, iters=12, lam=1e-4)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        r, c = vi_summary(vsol, vhist, sc)
+        r_flat, c_flat = vi_summary(vflat, vflat_hist, sc)
+        vi_bars(f"sharded_vi_bundle_adjust {dof}", r)
+        res[dof] = {"sharded": r, "centre_max_diff_m": float(np.abs(c - c_flat).max()),
+                    "scale_diff": abs(r["scale"] - r_flat["scale"]),
+                    "states_max_abs_diff": float((vsol.states - vflat.states).abs().max()),
+                    "points_max_abs_diff": float((vsol.points - vflat.points).abs().max()),
+                    "first_call_s": {"unsharded": t1 - t0, "sharded": t2 - t1}}
+        if not (res[dof]["centre_max_diff_m"] < 1e-3 and res[dof]["scale_diff"] < 1e-4):
+            raise AssertionError(f"sharded_vi_bundle_adjust {dof} against vi_bundle_adjust: "
+                                 f"{res[dof]}")
+    out["b"] = res
+    log(f"[17 b sharded_vi_bundle_adjust] {json.dumps(res)}")
+
+    # (c) two ranks on the card, over gloo on loopback
+    ranks = run_ranks()
+    for r in ranks:
+        log(f"[17 c rank {r['rank']}] {json.dumps(r)}")
+    out["c"] = ranks
+    out["c_gloo_cuda_send"] = gloo_cuda_send()
+    log(f"[17 c gloo send of a CUDA tensor, reported] {json.dumps(out['c_gloo_cuda_send'])}")
+
+    # (d) dryrun_multichip on 4 slots of the card
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4)
+    torch.cuda.synchronize()
+    dry["s"] = time.perf_counter() - t0
+    dry["launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+    out["d"] = dry
+    log(f"[17 d dryrun_multichip(4)] {json.dumps(dry)}")
+
+    # (e) ms per call beside the unsharded counterparts; one traced call each
+    local = local_points(prob, n)
+    out["e"] = {
+        "bundle_adjust": call_profile(
+            lambda: bundle_adjust(prob, iters=BA_ITERS, lam=BA_LAM, device=device), n=2),
+        "sharded_bundle_adjust_8_shards": call_profile(
+            lambda: sharded_bundle_adjust(local, mesh, iters=BA_ITERS, lam=BA_LAM), n=2),
+        "vi_first_call_s": {dof: v["first_call_s"] for dof, v in res.items()},
+        "ranks_ms": {r["rank"]: r["ms"] for r in ranks},
+        "ranks_wire_bytes": {r["rank"]: r["wire_bytes"] for r in ranks},
+    }
+    log(f"[17 e time] {json.dumps(out['e'])}")
+    return out, ranks[0]["launches"]["ctf"]
+
+
+def run_ranks():
+    """(c): RANKS processes of this script (``--rank PORT RANK``) started
+    together, each waited for with a timeout; their output goes to
+    chiprun_out/phase17_rank{r}.log. Returns each rank's result line."""
+    import os
+    import pathlib
+    import socket
+
+    here = pathlib.Path(__file__).resolve().parent
+    logs = here / "chiprun_out"
+    logs.mkdir(exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    files = [open(logs / f"phase17_rank{r}.log", "w+") for r in range(RANKS)]
+    procs = [subprocess.Popen([sys.executable, str(here / "chip_smoke.py"), "--rank", str(port),
+                               str(r)], cwd=here, env=env, stdout=f, stderr=subprocess.STDOUT,
+                              text=True) for r, f in enumerate(files)]
+    try:
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, f) in enumerate(zip(procs, files)):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        lines = [ln for ln in text.splitlines() if ln.startswith("RANK_RESULT ")]
+        if p.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n{text[-4000:]}")
+        results.append(json.loads(lines[0][len("RANK_RESULT "):]))
+    return results
+
+
+def gloo_cuda_send():
+    """Whether gloo sends a CUDA tensor point to point (two ranks of this
+    script, ``--gloo-send PORT RANK``, 1000 floats from rank 0 to rank 1):
+    the reason the port's halo strips cross gloo through pinned host memory.
+    Reported: each rank's exit code and its last line."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen([sys.executable, __file__, "--gloo-send", str(port), str(r)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(RANKS)]
+    out = {}
+    for r, p in enumerate(procs):
+        try:
+            text, _ = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+        lines = [ln for ln in text.strip().splitlines() if ln.strip()]
+        out[r] = {"exit": p.returncode, "last_line": lines[-1][-300:] if lines else ""}
+    return out
+
+
+def gloo_send_worker(port: int, rank: int) -> int:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=RANKS,
+                            rank=rank, timeout=datetime.timedelta(seconds=60))
+    x = torch.full((1000,), 1.0 + rank, device="cuda")
+    if rank == 0:
+        dist.send(x, 1)
+    else:
+        dist.recv(x, 0)
+    print(f"received {float(x.sum())}" if rank else "sent", flush=True)
+    return 0
+
+
+def rank_worker(port: int, rank: int) -> int:
+    """One rank of (c): the JAX package's tests/_distributed_worker.py legs
+    at full width, each against the unsharded path on this rank; prints one
+    RANK_RESULT line."""
+    import torch
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.config import PreprocessConfig, VideoConfig
+    from optical_flow_tpu_torch.flow.coarse_to_fine import coarse_to_fine
+    from optical_flow_tpu_torch.flow.lk import lucas_kanade
+    from optical_flow_tpu_torch.parallel import distributed as tdist
+    from optical_flow_tpu_torch.parallel import sharded_coarse_to_fine, sharded_lucas_kanade
+    from optical_flow_tpu_torch.parallel.mesh import (
+        local_indices,
+        psum,
+        reset_wire_counts,
+        split,
+        wire_counts,
+    )
+    from optical_flow_tpu_torch.pipeline.preprocess import preprocess_frame
+    from optical_flow_tpu_torch.slam import bundle_adjust, sharded_bundle_adjust
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = tdist.initialize_distributed(f"127.0.0.1:{port}", RANKS, rank)
+    device = torch.device("cuda", torch.cuda.current_device())
+    res = {"rank": rank, "backend": backend, "world": torch.distributed.get_world_size(),
+           "strips_through_pinned_host_memory": backend == "gloo", "launches": {}, "ms": {},
+           "wire_bytes": {}}
+
+    # phase 4's frames, round robin over the ranks, as gray 1080^2 frames
+    frames = synthetic_frames(np.random.RandomState(SEED), FRAMES, FRAME_HW)
+    pre = PreprocessConfig(size=(SIZE, SIZE), faithful_uint8=False)
+
+    def gray(f):
+        return preprocess_frame(torch.from_numpy(f).to(device), pre)
+
+    local = [gray(f) for f in list(tdist.host_local_frames(frames))[:4]]
+    mesh = tdist.global_flow_mesh(*RANK_MESH, devices=[device] * (int(np.prod(RANK_MESH)) // RANKS))
+    img1, img2 = tdist.make_global_batch(local[:2], mesh), tdist.make_global_batch(local[2:], mesh)
+    want = torch.stack([gray(frames[p + RANKS * i]) for p in range(RANKS) for i in range(2)])
+    if not torch.equal(img1, want):
+        raise AssertionError("make_global_batch: not the frames in rank order")
+
+    kernels.reset_launch_counts()
+    u, v = sharded_lucas_kanade(img1, img2, mesh)
+    torch.cuda.synchronize()
+    res["launches"]["lk"] = counts = kernels.launch_counts()
+    tiles = len(mesh.local_slots())
+    check_counts(f"rank {rank} sharded LK", counts, {"oft_lk": tiles, "oft_tile_copy": tiles})
+    ou, ov = lucas_kanade(img1, img2)
+    res["lk_bit_equal"] = bool(torch.equal(u, ou) and torch.equal(v, ov))
+    t = split(u.double(), mesh)
+    mean = float(psum([t[idx].sum() for idx in local_indices(t)], mesh)) / u.numel()
+    res["global_mean_diff"] = abs(mean - float(ou.double().mean()))
+    res["ms"]["sharded_lk"] = timed_ms(lambda: sharded_lucas_kanade(img1, img2, mesh))
+    res["ms"]["lk"] = timed_ms(lambda: lucas_kanade(img1, img2))
+
+    # the fast controller on phase 5's pair, the rows of a 2x2 mesh on two ranks
+    mesh_sp = tdist.global_flow_mesh(1, 2, 2, devices=[device] * 2)
+    if not (mesh_sp.ranks[0, 0] == 0).all() or not (mesh_sp.ranks[0, 1] == 1).all():
+        raise AssertionError(f"the mesh's rows do not lie on different ranks: {mesh_sp}")
+    a, b = shifted_pair(device, SIZE)
+    cfg = VideoConfig.fast(size=(SIZE, SIZE)).flow
+    u0, v0 = coarse_to_fine(a, b, 4, config=cfg)
+    kernels.reset_launch_counts()
+    reset_wire_counts()
+    u2, v2 = sharded_coarse_to_fine(a, b, mesh_sp, 4, config=cfg)
+    torch.cuda.synchronize()
+    res["launches"]["ctf"] = counts = kernels.launch_counts()
+    res["wire_bytes"]["ctf_first_call"] = wire_counts()["bytes"]
+    tiles = len(mesh_sp.local_slots())
+    # 135^2 (K1) and 270^2 (K3, odd 135^2 tiles) run whole on every rank
+    check_counts(f"rank {rank} sharded_coarse_to_fine", counts,
+                 {"oft_pyramid": 2, "oft_lk": 1, "oft_pyrup_warp_lk": 1,
+                  "oft_pyrup_warp_lk_tile": 2 * tiles, "oft_tile_copy": tiles})
+    res["ctf_bit_equal"] = bool(torch.equal(u2, u0) and torch.equal(v2, v0))
+    res["ctf_median_epe_px"] = float(torch.hypot(u2[8:-8, 8:-8] - SHIFT[0],
+                                                 v2[8:-8, 8:-8] - SHIFT[1]).median())
+    res["ms"]["sharded_coarse_to_fine"] = timed_ms(
+        lambda: sharded_coarse_to_fine(a, b, mesh_sp, 4, config=cfg))
+    res["ms"]["coarse_to_fine"] = timed_ms(lambda: coarse_to_fine(a, b, 4, config=cfg))
+
+    # phase 13 (c)'s BA, its 8 shards over both ranks
+    prob, _ = ba_scene()
+    flat, _ = bundle_adjust(prob, iters=BA_ITERS, lam=BA_LAM, device=device)
+    local_prob = local_points(prob, mesh.size)
+    sol, _ = sharded_bundle_adjust(local_prob, mesh, iters=BA_ITERS, lam=BA_LAM)
+    res["ba_rel_diff_vs_unsharded"] = max(rel_diff(sol.cams, flat.cams),
+                                          rel_diff(sol.points, flat.points))
+    sent = []
+    for iters in (BA_ITERS, BA_ITERS + 1):
+        reset_wire_counts()
+        sharded_bundle_adjust(local_prob, mesh, iters=iters, lam=BA_LAM)
+        sent.append(wire_counts()["bytes"])
+    res["wire_bytes"]["ba_per_gn_iteration"] = sent[1] - sent[0]
+    res["wire_bytes"]["ba_call"] = sent[0]
+    res["ms"]["sharded_bundle_adjust"] = timed_ms(
+        lambda: sharded_bundle_adjust(local_prob, mesh, iters=BA_ITERS, lam=BA_LAM))
+    res["ms"]["bundle_adjust"] = timed_ms(
+        lambda: bundle_adjust(prob, iters=BA_ITERS, lam=BA_LAM, device=device))
+    ok = (res["lk_bit_equal"] and res["global_mean_diff"] < 1e-9 and res["ctf_bit_equal"]
+          and res["ba_rel_diff_vs_unsharded"] <= 1e-8 and res["world"] == RANKS)
+    torch.distributed.destroy_process_group()
+    print("RANK_RESULT " + json.dumps(res), flush=True)
+    if not ok:
+        raise AssertionError(f"rank {rank}: {res}")
+    return 0
+
+
 def pyramid_graph_capture(device):
     """Whether the pyramid's grids (programmatic dependent launch between its
     levels) can be captured into a CUDA graph and replayed on new input
@@ -3456,6 +3824,10 @@ def main() -> int:
     t16 = time.perf_counter()
     _, serve_counts, serve_faithful_counts, serve_mesh_counts = phase_serve(device, frames)
     log(f"[16 serve] the served path passes ({time.perf_counter() - t16:.1f} s)")
+    t17 = time.perf_counter()
+    _, ranks_counts = phase_sharded(device)
+    log(f"[17 sharded] the sharded solvers, two ranks on the card and dryrun_multichip pass "
+        f"({time.perf_counter() - t17:.1f} s)")
     per_kernel["pyrup_warp_lk"]["by_shape"] += k3_c12
     del stream_results, ref_results
     per_kernel["pyramid"]["graph_capture"] = pyramid_graph_capture(device)
@@ -3506,7 +3878,8 @@ def main() -> int:
             "track": track_counts, "shift_controller": shift_counts, "sfm": sfm_counts,
             "slam": slam_counts, "stereo": stereo_counts, "vi": vi_counts,
             "slam_imu": slam_imu_counts, "serve": serve_counts,
-            "serve_faithful": serve_faithful_counts, "serve_mesh": serve_mesh_counts}
+            "serve_faithful": serve_faithful_counts, "serve_mesh": serve_mesh_counts,
+            "ranks": ranks_counts}
     missing = [name for name, (entries, run, _, _) in meta.items()
                if any(runs[run][e] == 0 for e in entries)]
     if missing:
@@ -3602,4 +3975,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:  # one rank of phase 17 (c), started by run_ranks
+        sys.exit(rank_worker(int(sys.argv[2]), int(sys.argv[3])))
+    if sys.argv[1:2] == ["--gloo-send"]:  # one rank of gloo_cuda_send
+        sys.exit(gloo_send_worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

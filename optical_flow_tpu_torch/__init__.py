@@ -14,7 +14,8 @@ Layer map:
               point runs on, metrics, the guard, checkpoints, images, golden
               files, visualisation and the evaluation formats
   flow/       single-level LK, the coarse-to-fine controller and Horn–Schunck
-  parallel/   a grid of devices, halo exchange and the mesh-sharded controller
+  parallel/   a grid of devices, halo exchange and the mesh-sharded controller,
+              on one process or across processes (distributed.py)
   pipeline/   preprocess -> pyramidal flow -> gesture video pipeline, and the
               server that answers frame streams over a socket (serve.py)
   io/         video decode, prefetch to the card, annotated video output and
@@ -22,11 +23,13 @@ Layer map:
   track/      sparse tracking: Shi–Tomasi corners, pyramidal sparse LK, RANSAC
               homography (reference of.cpp)
   slam/       structure from motion: essential matrix, PnP, bundle
-              adjustment, the windowed mapper, two- and multi-view
-              reconstruction (the rest of the JAX package's slam/ follows)
+              adjustment (sharded too), the windowed mapper, two- and
+              multi-view reconstruction, the mapper, visual-inertial BA
   __main__.py the command line (``python -m optical_flow_tpu_torch
               {flow,video,track,slam,serve}``)
   convert.py  configurations, streaming state and a mesh's shape from the JAX package
+  dryrun.py   dryrun_multichip: the pipeline step, sharded VI-BA and the
+              sparse tracker on an n-slot mesh
 """
 
 from optical_flow_tpu_torch.config import (

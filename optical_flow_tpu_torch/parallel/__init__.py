@@ -6,8 +6,9 @@ the sharded flow controller (port of optical_flow_tpu/parallel/).
   exchange between neighbouring tiles;
 - coarse levels and global ops run whole on the mesh's home device.
 
-One process drives every tile (the JAX package's single controller); a
-mesh may place several tiles on one device.
+A mesh may place several tiles on one device, and its slots may belong to
+several processes joined by ``torch.distributed`` (``distributed.py``:
+one process per card); each process then drives its own tiles.
 """
 
 from optical_flow_tpu_torch.parallel.mesh import flow_mesh, mesh_factorization

@@ -2,9 +2,12 @@
 
 The JAX package moves halo strips with ``lax.ppermute`` inside
 ``shard_map``; here one function takes the whole grid and builds every
-extended tile from its own data and its neighbours' edge strips, each
-strip moved with ``.to(tile.device)`` (a no-op where two tiles share a
-device).
+extended tile of this process from its own data and its neighbours' edge
+strips. A neighbour of this process moves its strip with
+``.to(tile.device)`` (a no-op where two tiles share a device); a
+neighbour held by another process sends it point to point
+(``mesh.exchange``: one batch of sends and receives that every process
+posts in the grid's slot order).
 
 Exchange order matters for corners: extending columns first and then
 exchanging rows of the already-extended tiles brings a diagonal
@@ -25,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from optical_flow_tpu_torch.parallel.mesh import _grid
+from optical_flow_tpu_torch.parallel.mesh import Remote, exchange, grid_like, local_indices
 
 
 def _fill(x: torch.Tensor, k: int, axis: int, border: str):
@@ -58,22 +61,44 @@ def _exchange_1d(grid: np.ndarray, k: int, axis: int, border: str) -> np.ndarray
     if k <= 0:
         return grid
     gaxis = 1 if axis == -2 else 2
-    n = grid.shape[gaxis]
-    out = _grid(grid.shape)
-    for idx in np.ndindex(grid.shape):
+    size = grid[local_indices(grid)[0]].shape[axis]  # tiles are equal on every process
+    if k > size:
+        raise ValueError(f"halo {k} exceeds the tile ({size} along axis {axis})")
+    # strips from another process's tiles, walked in one order on every process
+    sends, recvs, keys = [], [], []
+    for flat, idx in enumerate(np.ndindex(grid.shape)):
         x = grid[idx]
-        if k > x.shape[axis]:
-            raise ValueError(f"halo {k} exceeds the tile ({x.shape[axis]} along axis {axis})")
-        lo, hi = _fill(x, k, axis, border)
-        i = idx[gaxis]
-        if i > 0:
-            prev = grid[idx[:gaxis] + (i - 1,) + idx[gaxis + 1 :]]
-            lo = prev.narrow(axis, prev.shape[axis] - k, k).to(x.device)
-        if i < n - 1:
-            nxt = grid[idx[:gaxis] + (i + 1,) + idx[gaxis + 1 :]]
-            hi = nxt.narrow(axis, 0, k).to(x.device)
-        out[idx] = torch.cat([lo, x, hi], axis)
+        for side, nb in _neighbours(grid, idx, gaxis):
+            if isinstance(x, Remote) and not isinstance(nb, Remote):
+                sends.append((_edge(nb, k, axis, side), x.rank, 2 * flat + side))
+            elif isinstance(nb, Remote) and not isinstance(x, Remote):
+                recvs.append((_with(x.shape, axis, k), x, nb.rank, 2 * flat + side))
+                keys.append((idx, side))
+    received = dict(zip(keys, exchange(sends, recvs)))
+    out = grid_like(grid)
+    for idx in local_indices(grid):
+        x = grid[idx]
+        strips = list(_fill(x, k, axis, border))
+        for side, nb in _neighbours(grid, idx, gaxis):
+            strips[side] = (received[idx, side] if isinstance(nb, Remote)
+                            else _edge(nb, k, axis, side).to(x.device))
+        out[idx] = torch.cat([strips[0], x, strips[1]], axis)
     return out
+
+
+def _neighbours(grid: np.ndarray, idx, gaxis: int):
+    """(side, tile) of slot ``idx``'s neighbours along grid axis ``gaxis``:
+    side 0 before it, 1 after it."""
+    for side, j in ((0, idx[gaxis] - 1), (1, idx[gaxis] + 1)):
+        if 0 <= j < grid.shape[gaxis]:
+            yield side, grid[idx[:gaxis] + (j,) + idx[gaxis + 1 :]]
+
+
+def _edge(nb: torch.Tensor, k: int, axis: int, side: int) -> torch.Tensor:
+    """The strip of neighbour ``nb`` that borders a tile on its ``side``
+    (0: the neighbour comes before the tile, its last k; 1: after, its
+    first k)."""
+    return nb.narrow(axis, nb.shape[axis] - k, k) if side == 0 else nb.narrow(axis, 0, k)
 
 
 def exchange_halo_rows(grid: np.ndarray, k: int, *, border: str = "reflect") -> np.ndarray:

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from optical_flow_tpu_torch.flow.lk import lucas_kanade
@@ -24,7 +23,8 @@ from optical_flow_tpu_torch.parallel.mesh import (
     AXIS_COLS,
     AXIS_ROWS,
     FlowMesh,
-    _grid,
+    grid_like,
+    local_indices,
     merge,
     split,
     tile_origin,
@@ -52,9 +52,9 @@ def sharded_lucas_kanade(
     require_mesh_probe(mesh)
     g1, g2 = split(img1, mesh), split(img2, mesh)
     e1, e2 = exchange_halo(g1, _HALO), exchange_halo(g2, _HALO)
-    gu, gv = _grid(g1.shape), _grid(g1.shape)
+    gu, gv = grid_like(g1), grid_like(g1)
     crop = (Ellipsis, slice(_HALO, -_HALO), slice(_HALO, -_HALO))
-    for idx in np.ndindex(g1.shape):
+    for idx in local_indices(g1):
         u, v = lucas_kanade(e1[idx], e2[idx], impl=impl)
         h, w = g1[idx].shape[-2], g1[idx].shape[-1]
         keep = interior_mask(h, w, *tile_origin(g1, idx), H, W, device=u.device)

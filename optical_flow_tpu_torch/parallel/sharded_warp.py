@@ -25,7 +25,6 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from optical_flow_tpu_torch.ops.pad import pad_last2
@@ -41,8 +40,9 @@ from optical_flow_tpu_torch.parallel.mesh import (
     AXIS_COLS,
     AXIS_ROWS,
     FlowMesh,
-    _grid,
+    grid_like,
     grid_map,
+    local_indices,
     merge,
     split,
     tile_origin,
@@ -84,8 +84,8 @@ def sharded_symmetric_warp(
         w1, w2 = grid_map(lambda a, b, x, y: symmetric_shift_sep_sum(a, b, x, y, k),
                           e1, e2, dx_ext, dy)
         return merge(w1, mesh), merge(w2, mesh)
-    w1, w2 = _grid(g1.shape), _grid(g1.shape)
-    for idx in np.ndindex(g1.shape):
+    w1, w2 = grid_like(g1), grid_like(g1)
+    for idx in local_indices(g1):
         h, w = g1[idx].shape[-2], g1[idx].shape[-1]
         row0, col0 = tile_origin(g1, idx)
         dev = g1[idx].device

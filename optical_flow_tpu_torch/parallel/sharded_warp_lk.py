@@ -25,7 +25,6 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from optical_flow_tpu_torch.kernels.warp_lk_kernel import (
@@ -38,7 +37,8 @@ from optical_flow_tpu_torch.parallel.mesh import (
     AXIS_COLS,
     AXIS_ROWS,
     FlowMesh,
-    _grid,
+    grid_like,
+    local_indices,
     merge,
     split,
     tile_origin,
@@ -97,8 +97,8 @@ def sharded_warp_lk(
         exchange_halo(g, halo, border="zero")
         for g in (g1, split(img2, mesh), split(u, mesh), split(v, mesh))
     )
-    gu, gv = _grid(g1.shape), _grid(g1.shape)
-    for idx in np.ndindex(g1.shape):
+    gu, gv = grid_like(g1), grid_like(g1)
+    for idx in local_indices(g1):
         gu[idx], gv[idx] = warp_lk_cuda(
             e1[idx], e2[idx], eu[idx], ev[idx], max_disp=max_disp, clamp=clamp,
             negate=False, halo=halo, origin=tile_origin(g1, idx), global_hw=(H, W),
@@ -123,8 +123,8 @@ def sharded_pyrup_warp_lk(
     g1 = split(img1, mesh)
     e1, e2 = (exchange_halo(g, halo, border="zero") for g in (g1, split(img2, mesh)))
     eu, ev = (exchange_halo_pyrup(split(c, mesh), chalo, 2) for c in (u_coarse, v_coarse))
-    gu, gv = _grid(g1.shape), _grid(g1.shape)
-    for idx in np.ndindex(g1.shape):
+    gu, gv = grid_like(g1), grid_like(g1)
+    for idx in local_indices(g1):
         gu[idx], gv[idx] = pyrup_warp_lk_cuda(
             e1[idx], e2[idx], eu[idx], ev[idx], max_disp=max_disp, clamp=clamp,
             halo=halo, origin=tile_origin(g1, idx), global_hw=(H, W),

@@ -5,8 +5,8 @@ Layer map, in dependency order:
   epipolar.py     essential-matrix RANSAC (batched 8-point, host 5-point),
                   pose recovery, Gauss-Newton pose refinement, triangulation
   pnp.py          absolute pose by DLT, and its RANSAC
-  ba.py           Schur-complement Gauss-Newton bundle adjustment on one
-                  device
+  ba.py           Schur-complement Gauss-Newton bundle adjustment, on one
+                  device or with the points sharded over a mesh
   window.py       sliding-window BA with track retirement (WindowedBA)
   frontend.py     two_view_reconstruct and multi_view_reconstruct over the
                   sparse tracker of track/ (kernel K2 builds its pyramids)
@@ -25,10 +25,8 @@ Layer map, in dependency order:
                   visual-inertial alignment
   vi_ba.py        tightly-coupled visual-inertial BA (9- and 15-DOF states,
                   IMU factors in the reduced camera system) and
-                  refine_slam_with_imu, the engine of ``slam --imu``
-
-Not ported yet: sharded_bundle_adjust and sharded_vi_bundle_adjust, which
-wait for the mesh over several cards.
+                  refine_slam_with_imu, the engine of ``slam --imu``; its
+                  sharded form as ba.py's
 """
 
 from optical_flow_tpu_torch.slam.ba import (
@@ -36,6 +34,7 @@ from optical_flow_tpu_torch.slam.ba import (
     bundle_adjust,
     project,
     reprojection_rmse,
+    sharded_bundle_adjust,
 )
 from optical_flow_tpu_torch.slam.descriptors import (
     match_descriptors,
@@ -82,6 +81,7 @@ from optical_flow_tpu_torch.slam.vi_ba import (
     group_imu_by_keyframes,
     refine_slam_with_imu,
     refine_with_imu,
+    sharded_vi_bundle_adjust,
     vi_bundle_adjust,
     vi_problem_from_ba,
 )
@@ -98,6 +98,7 @@ __all__ = [
     "bundle_adjust",
     "project",
     "reprojection_rmse",
+    "sharded_bundle_adjust",
     "match_descriptors",
     "ncc_scores",
     "patch_descriptors",
@@ -133,6 +134,7 @@ __all__ = [
     "group_imu_by_keyframes",
     "refine_slam_with_imu",
     "refine_with_imu",
+    "sharded_vi_bundle_adjust",
     "vi_bundle_adjust",
     "vi_problem_from_ba",
 ]

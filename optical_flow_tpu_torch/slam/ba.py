@@ -28,9 +28,12 @@ On the card ``index_add_`` accumulates with atomics, so float64 sums come
 in an order that may differ from run to run: the card is held to the CPU by
 a tolerance, not by equality.
 
-``sharded_bundle_adjust`` (points sharded over a mesh, the camera system
-reduced across it) is not ported yet: it waits for the mesh over several
-cards.
+``sharded_bundle_adjust`` shards the points and their observations over
+a mesh (parallel/mesh.py): each shard assembles its part of the camera
+system on its slot's device, the parts are summed across the mesh
+(``mesh.psum``: the shards of this process, then ``all_reduce`` across
+processes, JAX's ``lax.psum``), the cameras are solved once from the sum
+and every shard back-substitutes its own points.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from optical_flow_tpu_torch.parallel.mesh import FlowMesh, gather_slots, psum
 from optical_flow_tpu_torch.pipeline.preprocess import _ieee_f32_matmul
 from optical_flow_tpu_torch.utils.device import as_tensor, call_device, host_array
 
@@ -274,14 +278,45 @@ def _back_substitute(Vinv, Wp, camT, bp, delta_c):
     return torch.einsum("pij,pj->pi", Vinv, -(bp + corr))
 
 
-def _gn_step(problem: BAProblem, lam, C: int, P: int, table, fixed=None):
-    Hcc, Hpp, bc, bp, Wp, camT, r = _assemble(problem, C, P, table)
-    S_partial, rhs_partial, Vinv = _schur_reduce(Hpp, bp, Wp, camT, lam, C)
+def _gn_step(shards, lam, C: int, tables, fixed=None, reduce=None):
+    """One Gauss-Newton step over point shards: ``shards`` are problems
+    (cameras replicated, points and observations their own) with their
+    track ``tables``. Each shard's camera-system terms (Hcc, bc, S_partial,
+    rhs_partial, its mean square residual) are assembled on its device;
+    ``reduce`` sums the shards' terms (given one tuple a shard; None: the
+    one shard's own). The cameras are solved once, on the device of the
+    sum, and each shard back-substitutes its points. Returns (the shards
+    updated, the reduced mean square residual)."""
+    terms, local = [], []
+    for prob, table in zip(shards, tables):
+        Hcc, Hpp, bc, bp, Wp, camT, r = _assemble(prob, C, prob.points.shape[0], table)
+        S_partial, rhs_partial, Vinv = _schur_reduce(Hpp, bp, Wp, camT, lam.to(Hpp.device), C)
+        terms.append((Hcc, bc, S_partial, rhs_partial, torch.mean(r * r)))
+        local.append((Vinv, Wp, camT, bp))
+    Hcc, bc, S_partial, rhs_partial, msr = terms[0] if reduce is None else reduce(terms)
     delta_c = _solve_cameras(Hcc, bc, S_partial, rhs_partial, lam, fixed=fixed)
-    delta_p = _back_substitute(Vinv, Wp, camT, bp, delta_c)
-    cams = problem.cams + delta_c
-    points = problem.points + delta_p
-    return problem._replace(cams=cams, points=points), torch.mean(r * r)
+    out = []
+    for prob, (Vinv, Wp, camT, bp) in zip(shards, local):
+        dc = delta_c.to(prob.cams.device)
+        delta_p = _back_substitute(Vinv, Wp, camT, bp, dc)
+        out.append(prob._replace(cams=prob.cams + dc, points=prob.points + delta_p))
+    return out, msr
+
+
+def mesh_reduce(mesh):
+    """The ``reduce`` of ``_gn_step`` over a mesh: each term summed over the
+    mesh's shards (one flat buffer through ``mesh.psum``), the mean square
+    residuals averaged (``lax.psum(msr) / n``)."""
+
+    def reduce(terms):
+        shapes = [t.shape for t in terms[0]]
+        flat = psum([torch.cat([t.reshape(-1) for t in ts]) for ts in terms], mesh)
+        out = list(torch.split(flat, [int(np.prod(s)) for s in shapes]))
+        out = [t.reshape(s) for t, s in zip(out, shapes)]
+        out[-1] = out[-1] / mesh.size
+        return tuple(out)
+
+    return reduce
 
 
 def _huber_sqrt_weights(problem: BAProblem, delta):
@@ -344,7 +379,7 @@ def bundle_adjust(
                 # IRLS: reweight at the CURRENT estimate each iteration, from
                 # the caller's base weights (padding zeros stay zero)
                 prob = prob._replace(weight=base_w * _huber_sqrt_weights(prob, delta))
-            prob, msr = _gn_step(prob, lam, C, P, table, fixed=fixed)
+            (prob,), msr = _gn_step([prob], lam, C, [table], fixed=fixed)
             problem = prob._replace(weight=base_w)
             hist.append(msr)
     return problem, (torch.stack(hist) if hist else torch.zeros((0,), dtype=dtype, device=dev))
@@ -364,3 +399,83 @@ def reprojection_rmse(problem: BAProblem, *, device=None) -> torch.Tensor:
         return torch.sqrt(torch.mean(sq))
     live = (problem.weight > 0).to(sq.dtype)
     return torch.sqrt(torch.sum(sq * live) / torch.clamp_min(torch.sum(live), 1))
+
+
+def shard_tables(pt_idx, P_local: int, M_local: int, n: int):
+    """The track tables of n shards (shard d: observations [d M_local, (d+1)
+    M_local), pt_idx local to its P_local points), with one global K, the
+    longest track of any shard (numpy, (n, P_local, K))."""
+    pt = host_array(pt_idx)
+    K = max(int(np.bincount(pt[d * M_local : (d + 1) * M_local], minlength=1).max())
+            for d in range(n))
+    return np.stack([build_track_table(pt[d * M_local : (d + 1) * M_local], P_local, K)
+                     for d in range(n)])
+
+
+def check_shardable(P: int, M: int, mesh: FlowMesh) -> None:
+    if P % mesh.size or M % mesh.size:
+        raise ValueError(f"points {P} and obs {M} must divide mesh size {mesh.size}")
+
+
+def shard_rows(x: torch.Tensor, d: int, n: int, device) -> torch.Tensor:
+    """Rows of shard d of n, on its device."""
+    m = x.shape[0] // n
+    return x[d * m : (d + 1) * m].to(device)
+
+
+def sharded_bundle_adjust(
+    problem: BAProblem,
+    mesh: FlowMesh,
+    iters: int = 10,
+    lam: float = 1e-3,
+    robust_delta=None,
+) -> Tuple[BAProblem, torch.Tensor]:
+    """BA with the points and observations sharded over every slot of the
+    mesh (``mesh.devices.flat`` order, one shard a slot) and the cameras
+    replicated. Returns (refined problem, per-iteration history: the mean
+    over shards of each shard's mean squared residual).
+
+    Requires P and M divisible by ``mesh.size``, and observations grouped
+    by owning shard: shard d's rows [d M/n, (d+1) M/n) reference only its
+    points [d P/n, (d+1) P/n), with pt_idx LOCAL to them. Every process of
+    the mesh passes the whole problem and works on its own slots' shards;
+    the camera system is summed across the mesh every iteration (one
+    ``all_reduce`` across processes), the cameras are solved identically
+    everywhere, and the points are gathered at the end, so every process
+    returns the whole problem on its home device. Huber IRLS
+    (``robust_delta``) reweights each shard's observations locally. Results
+    match ``bundle_adjust`` up to the order of the sums."""
+    check_shardable(problem.points.shape[0], problem.obs.shape[0], mesh)
+    problem = _problem_on(problem, mesh.home)
+    n, C = mesh.size, problem.cams.shape[0]
+    P_local, M_local = problem.points.shape[0] // n, problem.obs.shape[0] // n
+    tables = shard_tables(problem.pt_idx, P_local, M_local, n)
+    dtype = problem.points.dtype
+    # base weights of ones, which the Huber reweighting scales
+    base = problem if problem.weight is not None else problem._replace(
+        weight=torch.ones(problem.obs.shape[:1], dtype=problem.obs.dtype, device=mesh.home))
+    shards, shard_t = [], []
+    for d in mesh.local_slots():
+        dev = mesh.devices.flat[d]
+        shards.append(base._replace(cams=base.cams.to(dev), **{
+            name: shard_rows(getattr(base, name), d, n, dev)
+            for name in ("points", "cam_idx", "pt_idx", "obs", "weight", "baseline")
+            if getattr(base, name) is not None}))
+        shard_t.append(torch.from_numpy(tables[d]).to(dev))
+    fixed = torch.arange(C, device=mesh.home) == 0
+    lam = torch.full((), lam, dtype=dtype, device=mesh.home)
+    reduce = mesh_reduce(mesh)
+    hist = []
+    with _ieee_f32_matmul():
+        for _ in range(iters):
+            probs = shards
+            if robust_delta is not None:
+                probs = [s._replace(weight=s.weight * _huber_sqrt_weights(
+                    s, torch.full((), robust_delta, dtype=dtype, device=s.points.device)))
+                    for s in shards]
+            probs, msr = _gn_step(probs, lam, C, shard_t, fixed=fixed, reduce=reduce)
+            shards = [p._replace(weight=s.weight) for p, s in zip(probs, shards)]
+            hist.append(msr)
+    points = torch.cat(gather_slots([s.points for s in shards], mesh.ranks.reshape(-1), mesh))
+    return (problem._replace(cams=shards[0].cams.to(mesh.home), points=points),
+            torch.stack(hist) if hist else torch.zeros((0,), dtype=dtype, device=mesh.home))

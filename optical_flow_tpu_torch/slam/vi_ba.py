@@ -34,9 +34,11 @@ metric scale.
 
 Gauge: keyframe 0's POSE is pinned; its velocity stays live.
 
-``sharded_vi_bundle_adjust`` (points sharded over a mesh) is not ported
-yet: it waits for the mesh over several cards, with
-``sharded_bundle_adjust``.
+``sharded_vi_bundle_adjust`` shards the points and observations over a
+mesh as ``ba.sharded_bundle_adjust`` does: the visual camera system is
+summed across the mesh at width 6, and the IMU factors, whose inputs are
+replicated, are added once after the sum (summing them would count them
+once a shard).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from optical_flow_tpu_torch.parallel.mesh import FlowMesh, gather_slots
 from optical_flow_tpu_torch.pipeline.preprocess import _ieee_f32_matmul
 from optical_flow_tpu_torch.slam.ba import (
     BAProblem,
@@ -59,6 +62,10 @@ from optical_flow_tpu_torch.slam.ba import (
     _segment_sum,
     _solve_cameras,
     build_track_table,
+    check_shardable,
+    mesh_reduce,
+    shard_rows,
+    shard_tables,
 )
 from optical_flow_tpu_torch.slam.frontend import _rotmat_to_axis_angle
 from optical_flow_tpu_torch.slam.imu import (
@@ -227,19 +234,44 @@ def _embed6(M, D: int, axes):
     return F.pad(M, pad)
 
 
-def _gn_step_vi(problem: VIBAProblem, lam, C: int, P: int, table, fixed_dofs):
-    D = problem.states.shape[1]
-    Hcc6, Hpp, bc6, bp, Wp6, camT, r = _assemble_vis(problem, C, P, table)
-    S6, rhs6, Vinv = _schur_reduce(Hpp, bp, Wp6, camT, lam, C)
-    H_imu, b_imu, msr_imu = _imu_system(problem, C)
+def _gn_step_vi(shards, lam, C: int, tables, fixed_dofs, reduce=None):
+    """One Gauss-Newton step over point shards (``ba._gn_step``'s layout):
+    each shard's visual terms at width 6 on its device, summed by
+    ``reduce`` (None: the one shard's own), then the IMU system of the
+    replicated states added once, the D-wide cameras solved on the device of
+    the sum and each shard's points back-substituted. Returns (the shards
+    updated, the visual and the IMU mean square residuals)."""
+    D = shards[0].states.shape[1]
+    terms, local = [], []
+    for prob, table in zip(shards, tables):
+        Hcc6, Hpp, bc6, bp, Wp6, camT, r = _assemble_vis(prob, C, prob.points.shape[0], table)
+        S6, rhs6, Vinv = _schur_reduce(Hpp, bp, Wp6, camT, lam.to(Hpp.device), C)
+        terms.append((Hcc6, bc6, S6, rhs6, torch.mean(r * r)))
+        local.append((Vinv, Wp6, camT, bp))
+    Hcc6, bc6, S6, rhs6, msr_vis = terms[0] if reduce is None else reduce(terms)
+    home = _vi_on(shards[0], Hcc6.device)
+    H_imu, b_imu, msr_imu = _imu_system(home, C)
     delta_c = _solve_cameras(
         _embed6(Hcc6, D, (1, 2)), _embed6(bc6, D, (1,)) + b_imu,
         _embed6(S6, D, (1, 3)) + H_imu, _embed6(rhs6, D, (1,)), lam,
         fixed_dofs=fixed_dofs, precondition=True,
     )
-    delta_p = _back_substitute(Vinv, Wp6, camT, bp, delta_c[:, :6])
-    out = problem._replace(states=problem.states + delta_c, points=problem.points + delta_p)
-    return out, torch.mean(r * r), msr_imu
+    out = []
+    for prob, (Vinv, Wp6, camT, bp) in zip(shards, local):
+        dc = delta_c.to(prob.states.device)
+        delta_p = _back_substitute(Vinv, Wp6, camT, bp, dc[:, :6])
+        out.append(prob._replace(states=prob.states + dc, points=prob.points + delta_p))
+    return out, msr_vis, msr_imu
+
+
+def _vi_on(problem: VIBAProblem, device) -> VIBAProblem:
+    """The replicated (IMU) fields of a shard on ``device``."""
+    if problem.states.device == device:
+        return problem
+    return problem._replace(**{name: getattr(problem, name).to(device)
+                               for name in ("states", "dR", "dv", "dp", "interval_T", "gravity",
+                                            "imu_weight", "bias_jac", "bias_rw_weight")
+                               if getattr(problem, name) is not None})
 
 
 def _huber_weights_vi(prob: VIBAProblem, base_w, delta):
@@ -301,10 +333,58 @@ def vi_bundle_adjust(
             prob = problem
             if robust:
                 prob = prob._replace(weight=_huber_weights_vi(prob, base_w, delta))
-            prob, msr_vis, msr_imu = _gn_step_vi(prob, lam, C, P, table, fixed_dofs)
+            (prob,), msr_vis, msr_imu = _gn_step_vi([prob], lam, C, [table], fixed_dofs)
             problem = prob._replace(weight=base_w)
             hist.append(torch.stack([msr_vis, msr_imu]))
     return problem, (torch.stack(hist) if hist else torch.zeros((0, 2), dtype=dtype, device=dev))
+
+
+def sharded_vi_bundle_adjust(
+    problem: VIBAProblem,
+    mesh: FlowMesh,
+    iters: int = 12,
+    lam: float = 1e-3,
+) -> Tuple[VIBAProblem, torch.Tensor]:
+    """VI-BA with the points and observations sharded over every slot of
+    the mesh and the states, IMU deltas and gravity replicated (the
+    contract of ``ba.sharded_bundle_adjust``: P and M divisible by
+    ``mesh.size``, pt_idx LOCAL to each shard's point slice; every process
+    passes the whole problem and returns it whole). The visual camera
+    system is summed across the mesh; the IMU factors are assembled once
+    from the replicated states after the sum. Keyframe 0's pose is pinned.
+    Returns (refined problem, (iters, 2) history: the shards' mean of the
+    visual mean square residual, and the IMU's)."""
+    check_shardable(problem.points.shape[0], problem.obs.shape[0], mesh)
+    if problem.states.shape[1] == 15 and problem.bias_jac is None:
+        raise ValueError("15-DOF states need bias_jac (preintegrate_with_bias_jacobians)")
+    problem = _vi_problem_on(problem, mesh.home)
+    n = mesh.size
+    C, D = problem.states.shape
+    P_local, M_local = problem.points.shape[0] // n, problem.obs.shape[0] // n
+    tables = shard_tables(problem.pt_idx, P_local, M_local, n)
+    dtype = problem.points.dtype
+    shards, shard_t = [], []
+    for d in mesh.local_slots():
+        dev = mesh.devices.flat[d]
+        shards.append(_vi_on(problem, dev)._replace(**{
+            name: shard_rows(getattr(problem, name), d, n, dev)
+            for name in ("points", "cam_idx", "pt_idx", "obs", "weight", "baseline")
+            if getattr(problem, name) is not None}))
+        shard_t.append(torch.from_numpy(tables[d]).to(dev))
+    dofs = np.zeros((C, D), bool)
+    dofs[0, :6] = True  # the gauge anchor; velocities (and biases) live
+    fixed_dofs = torch.from_numpy(dofs.reshape(-1)).to(mesh.home)
+    lam = torch.full((), lam, dtype=dtype, device=mesh.home)
+    reduce = mesh_reduce(mesh)
+    hist = []
+    with _ieee_f32_matmul():
+        for _ in range(iters):
+            shards, msr_vis, msr_imu = _gn_step_vi(shards, lam, C, shard_t, fixed_dofs,
+                                                   reduce=reduce)
+            hist.append(torch.stack([msr_vis, msr_imu]))
+    points = torch.cat(gather_slots([s.points for s in shards], mesh.ranks.reshape(-1), mesh))
+    return (problem._replace(states=shards[0].states.to(mesh.home), points=points),
+            torch.stack(hist) if hist else torch.zeros((0, 2), dtype=dtype, device=mesh.home))
 
 
 def vi_problem_from_ba(

@@ -147,16 +147,22 @@ def test_exports_cover_the_jax_package():
         assert not missing, (t.__name__, missing)
         assert all(hasattr(t, name) for name in t.__all__)
     assert optical_flow_tpu_torch.track.track_features is optical_flow_tpu_torch.track.sparse_lk.track_features
-    # slam/ is ported in slices: what the port exports, it exports under
-    # JAX's names; what it lacks is exactly the bundle adjustments sharded
-    # over several cards
+    # slam/: the port exports every name of JAX's, the sharded bundle
+    # adjustments included, and nothing else
     import optical_flow_tpu.slam
     import optical_flow_tpu_torch.slam
 
     assert set(optical_flow_tpu_torch.slam.__all__) <= set(optical_flow_tpu.slam.__all__)
     assert all(hasattr(optical_flow_tpu_torch.slam, name) for name in optical_flow_tpu_torch.slam.__all__)
     missing = set(optical_flow_tpu.slam.__all__) - set(optical_flow_tpu_torch.slam.__all__)
-    assert missing == {"sharded_vi_bundle_adjust", "sharded_bundle_adjust"}, sorted(missing)
+    assert missing == set(), sorted(missing)
+    # parallel/distributed.py: JAX's four functions, under the same names
+    import optical_flow_tpu_torch.parallel.distributed as tdist
+
+    for name in ("initialize_distributed", "global_flow_mesh", "host_local_frames",
+                 "make_global_batch"):
+        assert callable(getattr(tdist, name)), name
+    assert (PKG / "parallel" / "distributed.py").exists() and (PKG / "dryrun.py").exists()
     import optical_flow_tpu_torch.slam.imu as imu
 
     for name in ("estimate_gyro_bias", "preintegrate_with_bias_jacobians",

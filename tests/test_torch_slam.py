@@ -18,6 +18,12 @@ the CPU; JAX with x64, as tests/conftest.py sets it). Tolerances:
                                                (monocular: after one global
                                                scale, see the test)
 
+  sharded_bundle_adjust, float64, on JAX's    cameras, points, history <= 1e-6
+  flow_mesh(2, 2, 2) and the port's           against JAX's sharded solve (its
+  flow_mesh(2, 2, 2, devices=["cpu"] * 8):    own bar, tests/test_slam.py:221-258);
+  plain, Huber, rig with weights              <= 1e-9 against the port's
+                                              unsharded solve
+
 The tests marked ``cuda`` hold the card against the CPU and skip where
 there is no card.
 """
@@ -34,7 +40,9 @@ import torch
 from optical_flow_tpu.slam import ba as j_ba
 from optical_flow_tpu.slam import epipolar as j_epi
 from optical_flow_tpu.slam import window as j_win
+from optical_flow_tpu.parallel import flow_mesh as j_flow_mesh
 from optical_flow_tpu_torch import convert
+from optical_flow_tpu_torch.parallel import flow_mesh
 from optical_flow_tpu_torch.slam import ba as t_ba
 from optical_flow_tpu_torch.slam import window as t_win
 
@@ -148,6 +156,56 @@ def test_bundle_adjust_matches_jax_f32(case):
     for a, b in ((tr.cams, jr.cams), (tr.points, jr.points)):
         b = np.asarray(b)
         assert np.abs(a.numpy() - b).max() <= 1e-4 * np.abs(b).max()
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the shards' many small ops, so they do not
+    spin against the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _by_shard(fields, n):
+    """A problem's observations grouped by owning shard, pt_idx local to it
+    (tests/test_slam.py's sharded layout)."""
+    cams, pts, ci, pi, obs, w, b = fields
+    order = np.argsort(pi, kind="stable")
+    sel = lambda x: None if x is None else x[order]  # noqa: E731
+    return cams, pts, ci[order], pi[order] % (len(pts) // n), obs[order], sel(w), sel(b)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("case", ["clean", "robust", "rig"])
+def test_sharded_bundle_adjust_matches_jax(case):
+    fields, kw = _problem(case)
+    kw["iters"] = 4  # 8 shards of tiny problems: launch-bound on the CPU
+    jp, tp = _both(_by_shard(fields, 8))
+    jr, jh = j_ba.sharded_bundle_adjust(jp, j_flow_mesh(2, 2, 2), **kw)
+    tr, th = t_ba.sharded_bundle_adjust(tp, flow_mesh(2, 2, 2, devices=["cpu"] * 8), **kw)
+    assert tr.cams.dtype == torch.float64 and tr.points.shape == tp.points.shape
+    jh = np.asarray(jh)
+    assert np.abs(tr.cams.numpy() - np.asarray(jr.cams)).max() <= 1e-6
+    assert np.abs(tr.points.numpy() - np.asarray(jr.points)).max() <= 1e-6
+    assert th.shape == jh.shape and np.abs(th.numpy() - jh).max() <= 1e-6 * jh.max()
+    # the port's sharded solve against its unsharded one (global indices)
+    ur, uh = t_ba.bundle_adjust(_both(fields)[1], **kw)
+    assert float((tr.cams - ur.cams).abs().max()) <= 1e-9
+    assert float((tr.points - ur.points).abs().max()) <= 1e-9
+    assert tr.weight is tp.weight or torch.equal(tr.weight, tp.weight)
+
+
+def test_sharded_bundle_adjust_raises_as_jax():
+    fields, _ = _problem("clean")  # 32 points, 128 observations
+    jp, tp = _both(fields)
+    jp, tp = (p._replace(points=p.points[:30]) for p in (jp, tp))
+    with pytest.raises(ValueError) as jerr:
+        j_ba.sharded_bundle_adjust(jp, j_flow_mesh(2, 2, 2))
+    with pytest.raises(ValueError) as terr:
+        t_ba.sharded_bundle_adjust(tp, flow_mesh(2, 2, 2, devices=["cpu"] * 8))
+    assert str(terr.value) == str(jerr.value)
 
 
 @pytest.mark.parametrize("cam", ["zero", "rotated", "rig"])
@@ -452,3 +510,19 @@ def test_windowed_ba_on_card(cuda_device, stereo):
     err = np.abs(runs[0][:, 3] - true_poses[:, 3])
     assert err.max() < 0.02 * true_poses[-1, 3]
     assert np.abs(runs[0] - runs[1]).max() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_sharded_bundle_adjust_on_card(cuda_device):
+    """chip_smoke.py phase 17 (a) at a fifth of its size: the shards of an
+    8-slot mesh that repeats the card, against bundle_adjust on the card."""
+    prob = _large_scene(C=20, P=2000)
+    mesh = flow_mesh(2, 2, 2, devices=[cuda_device] * 8)
+    flat, _ = t_ba.bundle_adjust(prob, iters=5, lam=1e-4, device=cuda_device)
+    local = prob._replace(pt_idx=prob.pt_idx % (2000 // 8))  # point-major already
+    out, hist = t_ba.sharded_bundle_adjust(local, mesh, iters=5, lam=1e-4)
+    assert out.points.device.type == "cuda" and hist.shape == (5,)
+    assert float(t_ba.reprojection_rmse(out._replace(pt_idx=prob.pt_idx))) < 0.1 * float(
+        t_ba.reprojection_rmse(prob))
+    for a, b in ((out.cams, flat.cams), (out.points, flat.points)):
+        assert float((a - b).abs().max()) <= 1e-8 * float(b.abs().max())

@@ -18,6 +18,12 @@ sharded ones) at their own bars. Tolerances:
   group_imu_by_keyframes                   equal; its layout preintegrated: dR atol
                                            1e-6, dv and dp <= 1e-5 x max|.|
   convert.vi_problem_from_jax              a round trip that is exact
+  sharded_vi_bundle_adjust, float64, 9-    states, points, history <= 1e-6 against
+  and 15-DOF, on JAX's flow_mesh(2, 2, 2)  JAX's sharded solve (its own bar,
+  and the port's 8 CPU slots               tests/test_vi_ba.py:265-300,
+                                           tests/test_vi_ba_bias_states.py:185);
+                                           <= 1e-9 against the port's unsharded
+                                           solve; JAX's errors
 
 The behavioural tests run the port in float32 (the dtype of
 ``refine_with_imu``); the monocular and stereo SlamResults they refine are
@@ -37,9 +43,11 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 
+from optical_flow_tpu.parallel import flow_mesh as j_flow_mesh  # noqa: E402
 from optical_flow_tpu.slam import imu as jimu  # noqa: E402
 from optical_flow_tpu.slam import vi_ba as jv  # noqa: E402
 from optical_flow_tpu_torch import convert  # noqa: E402
+from optical_flow_tpu_torch.parallel import flow_mesh  # noqa: E402
 from optical_flow_tpu_torch.slam import ba as tba  # noqa: E402
 from optical_flow_tpu_torch.slam import imu as timu  # noqa: E402
 from optical_flow_tpu_torch.slam import vi_ba as tv  # noqa: E402
@@ -178,6 +186,46 @@ def test_vi_bundle_adjust_matches_jax(scene, mode):
         assert_close(got, want, atol=1e-8)
     assert_close(hist, jhist, rel=1e-8)
     assert out.weight is None or mode == "robust"
+
+
+def _by_shard(jprob, sc, n=8):
+    """tests/test_vi_ba.py's sharded layout: observations grouped by owning
+    shard, pt_idx local to it."""
+    order = np.argsort(sc["pt_idx"], kind="stable")
+    return jprob._replace(cam_idx=jnp.asarray(sc["cam_idx"][order]),
+                          pt_idx=jnp.asarray(sc["pt_idx"][order] % (len(sc["X"]) // n)),
+                          obs=jnp.asarray(sc["obs"][order]))
+
+
+@pytest.mark.parametrize("mode", ["9dof", "15dof"])
+def test_sharded_vi_bundle_adjust_matches_jax(scene, mode):
+    sc = scene
+    jprob = _problem(sc, *_perturbed(sc)) if mode == "9dof" else _bias_problem(sc)
+    js = _by_shard(jprob, sc)
+    jout, jhist = jv.sharded_vi_bundle_adjust(js, j_flow_mesh(2, 2, 2), iters=4, lam=1e-4)
+    out, hist = tv.sharded_vi_bundle_adjust(convert.vi_problem_from_jax(js),
+                                            flow_mesh(2, 2, 2, devices=["cpu"] * 8), iters=4,
+                                            lam=1e-4)
+    assert hist.shape == (4, 2) and out.states.dtype == torch.float64
+    for got, want in ((out.states, jout.states), (out.points, jout.points)):
+        assert_close(got, want, atol=1e-6)
+    assert_close(hist, jhist, rel=1e-6)
+    flat, flat_hist = tv.vi_bundle_adjust(convert.vi_problem_from_jax(jprob), iters=4, lam=1e-4)
+    for got, want in ((out.states, flat.states), (out.points, flat.points)):
+        assert float((got - want).abs().max()) <= 1e-9
+    assert float((hist - flat_hist).abs().max()) <= 1e-9 * float(flat_hist.abs().max())
+
+
+def test_sharded_vi_bundle_adjust_raises_as_jax(scene):
+    sc = scene
+    js = _by_shard(_bias_problem(sc), sc)
+    mesh, jmesh = flow_mesh(2, 2, 2, devices=["cpu"] * 8), j_flow_mesh(2, 2, 2)
+    for bad in (js._replace(bias_jac=None), js._replace(points=js.points[:-1])):
+        with pytest.raises(ValueError) as jerr:
+            jv.sharded_vi_bundle_adjust(bad, jmesh, iters=1)
+        with pytest.raises(ValueError) as terr:
+            tv.sharded_vi_bundle_adjust(convert.vi_problem_from_jax(bad), mesh, iters=1)
+        assert str(terr.value) == str(jerr.value)
 
 
 def test_refine_with_imu_end_to_end_under_bias(scene):
@@ -522,3 +570,23 @@ def test_vi_bundle_adjust_on_card_matches_cpu(cuda_device):
         assert np.abs(est_card - chip_smoke.state_centres(cpu.states)).max() <= tol
         assert r["centre_err_mean_m"] < 5e-3 and abs(r["scale"] - 1.0) < 0.01, r
         assert r["vel_err_max"] < 0.03 and r["hist_vis_last"] < r["hist_vis_first"], r
+
+
+@pytest.mark.cuda
+def test_sharded_vi_bundle_adjust_on_card(cuda_device):
+    """chip_smoke.py phase 17 (b) at a smaller size: an 8-slot mesh that
+    repeats the card against vi_bundle_adjust on the card, float32, 9- and
+    15-DOF, within the card-vs-CPU bar of the test above (1e-4 m)."""
+    import chip_smoke
+
+    sc = chip_smoke.vi_scene(C=8, P=600)
+    mesh = flow_mesh(2, 2, 2, devices=[cuda_device] * 8)
+    for bias in (False, True):
+        prob = chip_smoke.vi_problem(sc, cuda_device, bias_jac=bias)
+        flat, _ = tv.vi_bundle_adjust(prob, iters=12, lam=1e-4)
+        out, hist = tv.sharded_vi_bundle_adjust(prob._replace(pt_idx=prob.pt_idx % (600 // 8)),
+                                                mesh, iters=12, lam=1e-4)
+        assert out.states.device.type == "cuda" and hist.shape == (12, 2)
+        r, est = chip_smoke.vi_summary(out, hist, sc)
+        assert np.abs(est - chip_smoke.state_centres(flat.states)).max() <= 1e-4
+        chip_smoke.vi_bars("sharded", r)
