@@ -12,7 +12,9 @@ GPU, and run the probes S2-S4.
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --rank PORT RANK`` and ``--gloo-send PORT RANK``
-are ranks of phase 17 (c), started by the script itself.)
+are ranks of phase 17 (c), started by the script itself;
+``python3 chip_smoke.py --phase18`` runs the build, phase 17 (c)'s ranks
+and phase 18 alone.)
 
 Phases, each printing one line (any failure raises and exits non-zero):
   1. device: the card's name and its nvidia-smi name/power-limit line;
@@ -205,7 +207,33 @@ Phases, each printing one line (any failure raises and exits non-zero):
      what gloo does with a CUDA tensor sent point to point; (d)
      dryrun_multichip(4) on the card; (e) ms per call, device busy and
      idle share of one traced call of (a) and of its unsharded
-     counterpart, and (b)'s times.
+     counterpart, and (b)'s times;
+ 18. the native host runtime and the examples: (a) what pkg-config finds
+     of libavformat, libavcodec, libavutil and libswscale; where it finds
+     them all, the native library built into build/native/, phase 4's
+     frames written to an .mp4 with cv2's VideoWriter (MPEG-4 part 2) and
+     decoded by backend='native' ('auto' must choose it): BGR equal to
+     cv2's decode bit for bit, gray (one-hop luma) within
+     tests/test_native.py's bar of cv2's gray, read_frames(start=5) equal
+     to decode-and-skip (BGR and gray), VideoPipeline(VideoConfig.fast())
+     .run(prefetch=2) from the native reader equal bit for bit to the run
+     on cv2's frames with exact counts (K2 11, K1 10, K3 30), the gray
+     decode through the fast head equal to its frames pushed, then
+     io/prefetch.py's decode_s and put_s a frame and the decode ms a frame
+     of native and cv2, BGR and gray; where pkg-config misses any, one
+     line names them and (a) alone is skipped; (b) the 14 examples in
+     process through main(argv) (still_regression only with a reference
+     checkout): video_gesture --fast at 1080^2 and live_gesture on 8
+     frames of the clip with phase 4's counts (K2 7, K1 6, K3 18),
+     live_gesture's lines those of the direct push; trajectory,
+     stabilize, sparse_track and pair_scrub launching K2; serve_stream
+     against a FlowServer on the card over loopback, its replies the
+     direct push's; scaling_report at 540^2 launching K5 and P1 on 4
+     slots; scale_drift printing the JAX script's lines; sfm_demo,
+     loop_closure, stereo_slam and vi_odometry within their JAX tests'
+     bars; each one's seconds (its lines in
+     chiprun_out/phase18_examples.log); (c) the backend phase 17 (c)'s
+     two ranks on the one card chose: gloo.
 Phase 3 also holds S1 at the three upsamples of a 1080^2 frame, and over
 a ragged sweep at odd and even coarse widths on both sides of its
 launcher's strip rule, bit for bit, and K1 at every level of the reference path, and times the one
@@ -307,7 +335,11 @@ RUNS = {"stream": "VideoPipeline.push (phase 4)",
         "serve_faithful": "FlowServer, faithful stream at 256^2 (phase 16 b)",
         "serve_mesh": "FlowServer(mesh=2x2 tile mesh), fast stream at 1080^2 (phase 16 a)",
         "ranks": "sharded_coarse_to_fine, fast, 2x2 mesh whose rows lie on two ranks, rank 0 "
-                 "(phase 17 c)"}
+                 "(phase 17 c)",
+        "native": "VideoPipeline(fast).run(prefetch=2) from the native decoder, 12 frames of "
+                  "720x1280 (phase 18 a)",
+        "scaling_report": "examples.scaling_report --size 540: batch scaling, then the sharded "
+                          "pyramid over 4 slots of the card (phase 18 b)"}
 PROFILE_WARMUP, PROFILE_FRAMES = 5, 40
 REFERENCE_PROFILE_FRAMES = 20
 HOST_WARM, HOST_TIMED = 5, 30  # phase 11 (e): frames before and inside the timed window
@@ -3707,6 +3739,353 @@ def sass_counts(lib_path, kernel, ops=SASS_OPS):
     return counts, forms
 
 
+# ------------------------------------ phase 18: native runtime and examples
+
+NATIVE_START = 5  # (a): read_frames(start=) seeks the container to this frame
+EXAMPLE_FRAMES = 8  # (b): frames of the clip the video examples read
+SCALING_SIZE = 540  # (b): scaling_report's frame size (the JAX script's default)
+# scale_drift's lines as the JAX package's examples/scale_drift.py prints
+# them (its default arguments, JAX on the CPU); the script is deterministic
+JAX_SCALE_DRIFT_LINES = [
+    "drifted (gamma=0.93, 16 keyframes): mean center error 4.585, endpoint 10.398 "
+    "(node scale decays to 0.34)",
+    "SE(3) closure:  mean 4.864, endpoint 0.006 (no scale dof — the spiral survives)",
+    "Sim(3) closure: mean 0.018, endpoint 0.009 (node scales lifted back to 1.00)",
+    "SE(3) / Sim(3) mean-error ratio: 273x",
+]
+FLOAT_RE = r"[-+]?\d+\.\d+"
+
+
+def write_clip(path, frames, fps=30.0):
+    """BGR frames into an MPEG-4 part 2 .mp4 with cv2's VideoWriter
+    (keyframes and predicted frames: a seek decodes from a keyframe)."""
+    import cv2
+
+    h, w = frames[0].shape[:2]
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    if not writer.isOpened():
+        raise AssertionError(f"cv2 cannot write {path}")
+    for f in frames:
+        writer.write(f)
+    writer.release()
+
+
+def staged_ms(source, device):
+    """io/prefetch.py's per-frame producer spans (chunks of one frame),
+    medians in ms: decode_s (pulling the frame from the reader) and put_s
+    (pinned staging and the copy to the card, waited for)."""
+    from optical_flow_tpu_torch.io.prefetch import prefetch_chunks_to_device
+
+    spans = []
+    for _ in prefetch_chunks_to_device(source, 1, device=device, timings=spans):
+        pass
+    return {"decode_ms": 1e3 * float(np.median([s["decode_s"] for s in spans])),
+            "put_ms": 1e3 * float(np.median([s["put_s"] for s in spans])), "frames": len(spans)}
+
+
+def gray_against_cv2(gray, bgr_cv2):
+    """The one-hop decode-time luma against cv2's BT.601 gray of cv2's BGR
+    decode: tests/test_native.py's bar (mean < 2, median <= 1)."""
+    import cv2
+
+    d = np.concatenate([np.abs(g.astype(np.int32) - cv2.cvtColor(b, cv2.COLOR_BGR2GRAY))
+                        .ravel() for g, b in zip(gray, bgr_cv2)])
+    out = {"max": int(d.max()), "mean": float(d.mean()), "median": float(np.median(d))}
+    if not (out["mean"] < 2.0 and out["median"] <= 1):
+        raise AssertionError(f"native gray against cv2's gray: {out}")
+    return out
+
+
+def phase_native_decode(device, frames, clip):
+    """(a): returns (its results, the launch counts of the pipeline run from
+    the native reader), or (results, None) where pkg-config finds no libav."""
+    import torch
+
+    from optical_flow_tpu_torch import kernels, native
+    from optical_flow_tpu_torch.config import VideoConfig
+    from optical_flow_tpu_torch.io.video_reader import VideoReader, read_frames
+    from optical_flow_tpu_torch.pipeline.video import VideoPipeline
+
+    flags, missing = native.av_flags()
+    versions = {}
+    for p in native.AV_PACKAGES:
+        r = subprocess.run(["pkg-config", "--modversion", p], capture_output=True, text=True) \
+            if "pkg-config not found" not in missing else None
+        versions[p] = r.stdout.strip() if r is not None and r.returncode == 0 else None
+    out = {"pkg_config": {"flags": list(flags), "missing": list(missing), "versions": versions}}
+    log(f"[18 a libav] {json.dumps(out['pkg_config'])}")
+    write_clip(clip, frames)
+    if missing:
+        log(json.dumps({"native": "unavailable", "missing": list(missing)}))
+        return out, None
+    t0 = time.perf_counter()
+    lib_path = native.build()
+    native.require_library()
+    out["build"] = {"library": str(lib_path.relative_to(lib_path.parents[2])),
+                    "s": time.perf_counter() - t0}
+    F = len(frames)
+    if VideoReader(clip).backend != "native":
+        raise AssertionError("'auto' did not take the native decoder")
+    bgr, bgr_cv2 = list(VideoReader(clip, backend="native")), list(VideoReader(clip, backend="cv2"))
+    if len(bgr) != F or len(bgr_cv2) != F or not all(
+            np.array_equal(a, b) for a, b in zip(bgr, bgr_cv2)):
+        raise AssertionError("native BGR decode differs from cv2's")
+    gray = list(VideoReader(clip, backend="native", gray=True))
+    if len(gray) != F or gray[0].shape != FRAME_HW or gray[0].dtype != np.uint8:
+        raise AssertionError("native gray decode: wrong count or shape")
+    out["bgr_equal_to_cv2"] = True
+    out["gray_vs_cv2_gray"] = gray_against_cv2(gray, bgr_cv2)
+    for g, full in ((False, bgr), (True, gray)):
+        seeked = list(read_frames(clip, start=NATIVE_START, gray=g))
+        with native.NativeFramePipe(clip, start=NATIVE_START, gray=g) as pipe:
+            direct = list(pipe)
+        if not (len(seeked) == len(direct) == F - NATIVE_START and all(
+                np.array_equal(a, b) and np.array_equal(a, c)
+                for a, b, c in zip(seeked, direct, full[NATIVE_START:]))):
+            raise AssertionError(f"seek to {NATIVE_START} (gray={g}) differs from decode-and-skip")
+    out["seek"] = {"start": NATIVE_START, "equal_to_decode_and_skip": True}
+
+    fast = VideoConfig.fast(size=(SIZE, SIZE))
+    kernels.reset_launch_counts()
+    got = list(VideoPipeline(fast, device=device).run(read_frames(clip), prefetch=2))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_counts("native stream", counts,
+                 {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2)})
+    same_results("native stream against cv2-decoded frames",
+                 got, list(VideoPipeline(fast, device=device).run(bgr_cv2, prefetch=2)))
+    got_gray = list(VideoPipeline(fast, device=device).run(read_frames(clip, gray=True),
+                                                           prefetch=2))
+    same_results("native gray stream against its frames pushed",
+                 got_gray, list(VideoPipeline(fast, device=device).run(gray, prefetch=0)))
+    # the luma path against the BGR path: one-hop luma moves gray by a
+    # level or so, so the flows part by that (reported)
+    d = torch.cat([torch.hypot(a.u - b.u, a.v - b.v).flatten() for a, b in zip(got_gray, got)])
+    out["pipeline"] = {
+        "launches": counts, "equal_to_cv2": True, "gray_equal_to_pushed": True,
+        "gray_vs_bgr_flow": {"median": float(d.median()), "q99": float(torch.quantile(
+            d.double().cpu(), 0.99)), "votes": [(int(a.gesture.votes), int(b.gesture.votes))
+                                                 for a, b in zip(got_gray, got)]}}
+    out["staged_ms"] = {
+        "native_bgr": staged_ms(read_frames(clip), device),
+        "cv2_bgr": staged_ms(VideoReader(clip, backend="cv2"), device),
+        "native_gray": staged_ms(read_frames(clip, gray=True), device),
+        "cv2_gray": staged_ms(VideoReader(clip, backend="cv2", gray=True), device)}
+    decode = {}
+    for name, make in (("native_bgr", lambda: VideoReader(clip, backend="native")),
+                       ("cv2_bgr", lambda: VideoReader(clip, backend="cv2")),
+                       ("native_gray", lambda: VideoReader(clip, backend="native", gray=True)),
+                       ("cv2_gray", lambda: VideoReader(clip, backend="cv2", gray=True))):
+        spans = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in make())
+            spans.append((time.perf_counter() - t0) / n * 1e3)
+        decode[name] = spans
+    out["decode_ms_per_frame"] = decode
+    log(f"[18 a native decode] {json.dumps(out)}")
+    return out, counts
+
+
+def run_example(name, argv, transcript):
+    """The port's example ``name`` in process through main(argv): (stdout
+    lines, wall seconds); its lines go to ``transcript``; a non-zero exit
+    raises."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    mod = importlib.import_module(f"optical_flow_tpu_torch.examples.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    transcript.write(f"$ {name} {' '.join(argv)}\n" + "\n".join(lines) + f"\n(exit {rc}, {s:.2f} s)\n")
+    if rc != 0:
+        raise AssertionError(f"example {name} exited {rc}: {lines[-5:]}")
+    return lines, s
+
+
+def _floats(line):
+    return [float(x) for x in re.findall(FLOAT_RE, line)]
+
+
+def _line(lines, prefix):
+    return next(x for x in lines if x.startswith(prefix))
+
+
+def phase_examples(device, clip, work):
+    """(b): every example on the card, in process; returns each one's
+    seconds, launch counts and checks."""
+    import torch
+
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.config import VideoConfig
+    from optical_flow_tpu_torch.examples.vi_odometry import make_scene
+    from optical_flow_tpu_torch.io.video_reader import read_frames
+    from optical_flow_tpu_torch.pipeline.serve import FlowServer
+    from optical_flow_tpu_torch.pipeline.video import VideoPipeline
+    from optical_flow_tpu_torch.utils.goldens import reference_dir
+
+    F = EXAMPLE_FRAMES
+    stream = {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2)}
+    logs = pathlib_root() / "chiprun_out"
+    logs.mkdir(exist_ok=True)
+    out, counts_by_key = {}, {}
+    with open(logs / "phase18_examples.log", "w") as transcript:
+        def run(key, name, argv, want_counts=None, must_launch=()):
+            kernels.reset_launch_counts()
+            lines, s = run_example(name, argv, transcript)
+            counts = kernels.launch_counts()
+            if want_counts is not None:
+                check_counts(key, counts, want_counts)
+            if any(counts[k] == 0 for k in must_launch):
+                raise AssertionError(f"{key} launched none of {must_launch}: {counts}")
+            out[key] = {"s": s, "launches": {k: v for k, v in counts.items() if v}}
+            counts_by_key[key] = counts
+            return lines
+
+        clip_args = ["--input", str(clip)]
+        lines = run("video_gesture", "video_gesture", clip_args + [
+            "--frames", str(F), "--size", str(SIZE), "--fast"], stream)
+        if sum(x.startswith("frame ") for x in lines) != F - 2:
+            raise AssertionError(f"video_gesture printed {lines}")
+        lines = run("live_gesture", "live_gesture", clip_args + [
+            "--frames", str(F), "--size", str(SIZE)], stream)
+        pipe = VideoPipeline(VideoConfig.fast(size=(SIZE, SIZE)), device=device)
+        direct = [r.gesture for r in (pipe.push(f) for f in read_frames(clip, max_frames=F))
+                  if r is not None]
+        want = [f"frame {n:4d} {'GESTURE' if bool(g.detected) else '       '} votes="
+                f"{int(g.votes):5d} centroid=({float(g.cx):6.1f},{float(g.cy):6.1f})"
+                for n, g in enumerate(direct, start=1)]
+        if lines[:-1] != want:
+            raise AssertionError(f"live_gesture's lines are not the direct push's: {lines}")
+        for name in ("trajectory", "stabilize", "sparse_track"):
+            lines = run(name, name, clip_args + ["--frames", "6"], must_launch=("oft_pyramid",))
+        lines = run("pair_scrub", "pair_scrub", clip_args + [
+            "--script", "fbq", "--max-frames", "4", "--outdir", str(work / "scrub")],
+            must_launch=("oft_pyramid",))
+        if sorted(p.name for p in (work / "scrub").iterdir()) != ["pair_0000.png", "pair_0001.png"]:
+            raise AssertionError("pair_scrub wrote the wrong files")
+
+        srv = FlowServer(port=0, device=device)
+        srv.start_background()
+        try:
+            host, port = srv.address
+            lines = run("serve_stream", "serve_stream", clip_args + [
+                "--host", host, "--port", str(port), "--frames", str(F), "--size", str(SIZE)],
+                must_launch=("oft_pyramid", "oft_lk", "oft_pyrup_warp_lk"))
+        finally:
+            srv.shutdown()
+        replies = [json.loads(x) for x in lines]
+        served = [r for r in replies[1:-1] if r.get("votes") is not None]
+        if replies[-1] != {"end": True, "frames": F} or len(served) != len(direct) or any(
+                (r["votes"], r["detected"], r["cx"], r["cy"]) != (
+                    int(g.votes), bool(g.detected), float(g.cx), float(g.cy))
+                for r, g in zip(served, direct)):
+            raise AssertionError(f"serve_stream's replies are not the direct push's: {lines}")
+
+        lines = run("scaling_report", "scaling_report", ["--size", str(SCALING_SIZE),
+                                                         "--iters", "4"],
+                    must_launch=("oft_pyrup_warp_lk_tile", "oft_tile_copy"))
+        if not lines[-1].endswith(": OK"):
+            raise AssertionError(f"scaling_report: {lines[-1]}")
+        out["scaling_report"]["lines"] = lines
+
+        lines = run("scale_drift", "scale_drift", [])
+        if lines != JAX_SCALE_DRIFT_LINES:
+            raise AssertionError(f"scale_drift's lines are not the JAX script's: {lines}")
+        lines = run("sfm_demo", "sfm_demo", ["--frames", "4"], must_launch=("oft_pyramid",))
+        before, after = _floats(lines[1])
+        txs = np.array([_floats(x)[1] for x in lines if x.startswith("cam ")])
+        txs = txs * np.sign(txs[-1])
+        steps = np.diff(txs)
+        if not (after <= before + 1e-3 and after < 3.0 and np.all(steps > 0)
+                and steps.max() / max(steps.min(), 1e-9) < 1.8):
+            raise AssertionError(f"sfm_demo outside tests/test_epipolar.py's bars: {lines}")
+        out["sfm_demo"]["rmse"] = [before, after]
+        lines = run("loop_closure", "loop_closure", ["--frames", "8"], must_launch=("oft_pyramid",))
+        end0, end1 = _floats(_line(lines, "endpoint error"))
+        mean0, mean1 = _floats(_line(lines, "mean center error"))
+        if not (end1 < 0.5 * end0 and mean1 < mean0):
+            raise AssertionError(f"loop_closure outside tests/test_pose_graph.py's bars: {lines}")
+        out["loop_closure"]["endpoint"], out["loop_closure"]["mean"] = [end0, end1], [mean0, mean1]
+        lines = run("stereo_slam", "stereo_slam", ["--frames", "6"], must_launch=("oft_pyramid",))
+        mono, stereo = _floats(_line(lines, "monocular:")), _floats(_line(lines, "stereo:"))
+        m = re.search(r"stereo map: (\d+) landmarks, median depth (" + FLOAT_RE + ")", lines[-1])
+        if not (mono[-1] < 0.05 and stereo[0] < 0.05 and int(m[1]) >= 50
+                and 3.0 < float(m[2]) < 12.0):
+            raise AssertionError(f"stereo_slam outside tests/test_stereo_slam.py's bars: {lines}")
+        out["stereo_slam"]["centre_error"] = {"mono_fit": mono[-1], "stereo_raw": stereo[0]}
+        span = float(np.linalg.norm(make_scene()["centers"], axis=1).max())
+        for argv in (["--vis-noise", "0"], ["--vis-noise", "0", "--bias-drift"]):
+            key = "vi_odometry" + ("_bias_drift" if "--bias-drift" in argv else "")
+            lines = run(key, "vi_odometry", argv)
+            vals = {k.strip(): v for k, v in (x.split(":", 1) for x in lines if ":" in x)}
+            if key == "vi_odometry":
+                scale = float(vals["alignment-recovered scale"])
+                _, joint = _floats(vals["mean |center err| metric"])
+                final = _floats(vals["final trajectory scale"])[0]
+                if not (abs(scale - 3.0) / 3.0 < 0.05 and joint < 0.03 * span
+                        and abs(final - 1.0) < 0.03):
+                    raise AssertionError(f"vi_odometry outside tests/test_vi_ba.py's bars: {lines}")
+                out[key].update(scale=scale, centre_error=joint, final_scale=final)
+            else:
+                err_f = _floats(vals["frozen-bias (9-DOF)  err"])[0]
+                err_b = _floats(vals["bias-state (15-DOF)  err"])[0]
+                if not (err_f > 2.0 * err_b and err_b < 0.03 * span):
+                    raise AssertionError(f"vi_odometry --bias-drift outside "
+                                         f"tests/test_vi_ba_bias_states.py's bars: {lines}")
+                out[key].update(frozen=err_f, bias_states=err_b)
+        if reference_dir() is not None:
+            run("still_regression", "still_regression", ["--f32"])
+        else:
+            out["still_regression"] = "skipped: no reference checkout (OPTICAL_FLOW_REFERENCE_DIR)"
+    log(f"[18 b examples] {json.dumps(out)}")
+    log("  seconds: " + ", ".join(f"{k} {v['s']:.2f}" for k, v in out.items()
+                                  if isinstance(v, dict)))
+    return out, counts_by_key
+
+
+def pathlib_root():
+    import pathlib
+
+    return pathlib.Path(__file__).resolve().parent
+
+
+def phase_native(device, frames, ranks):
+    """Phase 18: (a) native decode, (b) the examples, (c) the backend the
+    one-card launch of phase 17 (c) chose. Its files go under the
+    checkout's git-ignored build/phase18/, deleted after. Returns the
+    native stream's (None without libav) and scaling_report's launch
+    counts."""
+    import shutil
+    import socket
+
+    work = pathlib_root() / "build" / "phase18"
+    work.mkdir(parents=True, exist_ok=True)
+    clip = work / "clip.mp4"
+    try:
+        t0 = time.perf_counter()
+        dec, native_counts = phase_native_decode(device, frames, clip)
+        t_a = time.perf_counter() - t0
+        ex, ex_counts = phase_examples(device, clip, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    backends = sorted({r["backend"] for r in ranks})
+    if backends != ["gloo"]:
+        raise AssertionError(f"two ranks on one card chose {backends}, not gloo")
+    log(f"[18 c backend] two ranks on one card ({socket.gethostname()}, "
+        f"{len(ranks)} ranks, 1 card): {backends[0]}")
+    log(f"  18 (a) {t_a:.1f} s, (b) {sum(v['s'] for v in ex.values() if isinstance(v, dict)):.1f} s")
+    return native_counts, ex_counts["scaling_report"]
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -3825,9 +4204,14 @@ def main() -> int:
     _, serve_counts, serve_faithful_counts, serve_mesh_counts = phase_serve(device, frames)
     log(f"[16 serve] the served path passes ({time.perf_counter() - t16:.1f} s)")
     t17 = time.perf_counter()
-    _, ranks_counts = phase_sharded(device)
+    sharded, ranks_counts = phase_sharded(device)
     log(f"[17 sharded] the sharded solvers, two ranks on the card and dryrun_multichip pass "
         f"({time.perf_counter() - t17:.1f} s)")
+    t18 = time.perf_counter()
+    native_counts, scaling_counts = phase_native(device, frames, sharded["c"])
+    log(f"[18 native] the native runtime{'' if native_counts else ' (no libav: (a) skipped)'}, "
+        f"the examples and the backend choice pass ({time.perf_counter() - t18:.1f} s)")
+    del sharded
     per_kernel["pyrup_warp_lk"]["by_shape"] += k3_c12
     del stream_results, ref_results
     per_kernel["pyramid"]["graph_capture"] = pyramid_graph_capture(device)
@@ -3879,7 +4263,12 @@ def main() -> int:
             "slam": slam_counts, "stereo": stereo_counts, "vi": vi_counts,
             "slam_imu": slam_imu_counts, "serve": serve_counts,
             "serve_faithful": serve_faithful_counts, "serve_mesh": serve_mesh_counts,
-            "ranks": ranks_counts}
+            "ranks": ranks_counts,
+            "native": native_counts, "scaling_report": scaling_counts}
+    # a run that did not take place (phase 18 (a) without libav) counts None,
+    # printed as null beside the reason, never as zeros
+    skipped = {} if native_counts else {"native": "not run: pkg-config found no libav, so "
+                                                  "phase 18 (a) was skipped"}
     missing = [name for name, (entries, run, _, _) in meta.items()
                if any(runs[run][e] == 0 for e in entries)]
     if missing:
@@ -3949,7 +4338,8 @@ def main() -> int:
         roof = stage_roofline(Cost(r["bytes"], r["ops"]), r["device_ms"], rates=sustained)
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": sum(runs[run][e] for e in entries), "run": RUNS[run],
-               "launches_by_run": {k: sum(c[e] for e in entries) for k, c in runs.items()},
+               "launches_by_run": {k: None if c is None else sum(c[e] for e in entries)
+                                   for k, c in runs.items()},
                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": roof["bound_ms"], "bound_by": roof["bound_by"],
                "library_ms": r["library_ms"], "device_ms": r["device_ms"],
@@ -3961,6 +4351,8 @@ def main() -> int:
                     "library_ms_by_variant", "launch_floor_ms"):
             if key in r:
                 row[key] = r[key]
+        if skipped:
+            row["runs_skipped"] = skipped
         if len(entries) > 1:
             row["launches_by_entry"] = {e: runs[run][e] for e in entries}
             row["variants_ms"] = r["variants"]
@@ -3974,7 +4366,38 @@ def main() -> int:
     return 0
 
 
+def main_phase18() -> int:
+    """Phase 18 alone (``python3 chip_smoke.py --phase18``): the device line,
+    the kernels' build, phase 17 (c)'s two ranks for (c), then phase 18."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU")
+    from optical_flow_tpu_torch.kernels import _lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(f"[1 device] {kind}; nvidia-smi: {smi.splitlines()[0]}")
+    t0 = time.perf_counter()
+    _lib.library()
+    log(f"[2 build] {time.perf_counter() - t0:.1f} s")
+    frames = synthetic_frames(np.random.RandomState(SEED), FRAMES, FRAME_HW)
+    ranks = run_ranks()
+    t18 = time.perf_counter()
+    phase_native(device, frames, ranks)
+    log(f"[18 native] passes ({time.perf_counter() - t18:.1f} s)")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase18"]:
+        sys.exit(main_phase18())
     if sys.argv[1:2] == ["--rank"]:  # one rank of phase 17 (c), started by run_ranks
         sys.exit(rank_worker(int(sys.argv[2]), int(sys.argv[3])))
     if sys.argv[1:2] == ["--gloo-send"]:  # one rank of gloo_cuda_send

@@ -3,6 +3,10 @@
 Frames come out as numpy arrays on the host; decoding never belongs on
 the card. Backends:
 
+- ``native``: the native host runtime's libavcodec decoder on a C++
+  thread (``optical_flow_tpu_torch/native``), with container seeks for
+  ``read_frames(start=)`` and decode-time GRAY8;
+- ``v4l2``: the native runtime's V4L2 camera capture;
 - ``pipe``: a rawvideo source ``'pipe:WxH[@FPS]:PATH'`` (BGR24, or GRAY8
   with ``gray=True``) read from a FIFO or a file, as an external capture
   tool writes it;
@@ -10,11 +14,11 @@ the card. Backends:
   geometry from ffprobe;
 - ``cv2``: ``cv2.VideoCapture``, for files and cameras.
 
-The JAX package's ``native`` decoder and ``v4l2`` camera backend need its
-C++ loader, which the port has not taken over yet (ROADMAP.md, Queue 1
-#8): asked for by name they raise ``NotImplementedError``, and ``'auto'``
-chooses as the JAX package does when that library is absent (files:
-ffmpeg if ffprobe reads the file, else cv2; cameras: cv2).
+``'auto'`` chooses as the JAX package does: a file goes to ``native`` when
+the library loads and its probe opens the file, else to ``ffmpeg`` when
+ffprobe reads it, else to ``cv2``; a camera to ``v4l2``, else ``cv2``.
+``reader.backend`` names the choice. Asked for by name, ``native`` and
+``v4l2`` raise with the library's reason rather than decode elsewhere.
 """
 
 from __future__ import annotations
@@ -27,15 +31,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-_NATIVE = ("native", "v4l2")
-
-
-def _refuse_native(backend: str) -> None:
-    if backend in _NATIVE:
-        raise NotImplementedError(
-            f"backend={backend!r} needs the native host runtime, which is not ported yet "
-            "(ROADMAP.md, Queue 1 #8); use 'pipe:', 'ffmpeg' or 'cv2'"
-        )
+from optical_flow_tpu_torch import native
 
 
 def _probe_ffmpeg(path: str) -> Optional[Tuple[int, int, float]]:
@@ -105,13 +101,16 @@ def _read_exact(f, nbytes: int, shape) -> Iterator[np.ndarray]:
 class VideoReader:
     """Iterate HxWx3 uint8 BGR frames from a video file, camera or pipe.
 
+    Camera sources — an integer, 'device:N' or '/dev/videoN' (the
+    reference's VideoCapture(0), ParallelVideoPyr.cpp:737) — capture via
+    the native V4L2 backend, else cv2.VideoCapture.
+
     gray=True yields (H, W) GRAY8 frames instead: BT.601 luma made during
-    decode (ffmpeg) or on the host (cv2), so a third of the bytes cross to
-    the card for gray-first consumers (the fast preset).
+    decode (native, ffmpeg) or on the host (cv2), so a third of the bytes
+    cross to the card for gray-first consumers (the fast preset).
     """
 
     def __init__(self, path, backend: str = "auto", gray: bool = False):
-        _refuse_native(backend)
         self.gray = bool(gray)
         pipe = _parse_pipe_spec(path) if isinstance(path, str) else None
         if pipe is not None:
@@ -120,21 +119,29 @@ class VideoReader:
             return
         dev = _parse_device_spec(path)
         if dev is not None:
-            # no native V4L2 capture yet: cameras go through cv2, which
-            # wants the device index
-            self.backend = "cv2"
-            self.path = int(dev[len("/dev/video"):])
-            self._probe_cv2()
+            self.path = dev
+            self._init_camera(backend)
             return
         self.path = str(path)
         if not Path(self.path).exists():
             raise FileNotFoundError(self.path)
         probe = None
         if backend == "auto":
-            probe = _probe_ffmpeg(self.path) if shutil.which("ffmpeg") else None
-            backend = "ffmpeg" if probe else "cv2"
+            # commit only to a backend whose probe opens this file
+            probe = native.probe_native(self.path)
+            if probe is not None:
+                backend = "native"
+            else:
+                probe = _probe_ffmpeg(self.path) if shutil.which("ffmpeg") else None
+                backend = "ffmpeg" if probe else "cv2"
         self.backend = backend
-        if backend == "ffmpeg":
+        if backend == "native":
+            native.require_library()
+            probe = probe or native.probe_native(self.path)
+            if probe is None:
+                raise RuntimeError(f"native probe failed for {self.path}")
+            self.width, self.height, self.fps = probe
+        elif backend == "ffmpeg":
             probe = probe or _probe_ffmpeg(self.path)
             if probe is None:
                 raise RuntimeError(
@@ -146,6 +153,27 @@ class VideoReader:
             self._probe_cv2()
         else:
             raise ValueError(f"unknown backend {backend!r}")
+
+    def _init_camera(self, backend: str) -> None:
+        if backend in ("auto", "v4l2"):
+            # an explicit v4l2 raises with the library's reason, never degrades to cv2
+            lib = native.require_library() if backend == "v4l2" else native.load_library()
+            if lib is not None:
+                try:
+                    cam = native.NativeCamera(self.path, gray=self.gray)
+                except RuntimeError:
+                    if backend == "v4l2":
+                        raise
+                else:
+                    self.backend = "v4l2"
+                    self.width, self.height, self.fps = cam.width, cam.height, cam.fps
+                    self._camera = cam
+                    return
+        # cv2 (any other backend named for a camera, as in the JAX package)
+        # wants the device index
+        self.backend = "cv2"
+        self.path = int(self.path[len("/dev/video"):])
+        self._probe_cv2()
 
     def _probe_cv2(self) -> None:
         import cv2
@@ -163,7 +191,13 @@ class VideoReader:
         return self.width * self.height * (1 if self.gray else 3)
 
     def __iter__(self) -> Iterator[np.ndarray]:
-        if self.backend == "pipe":
+        if self.backend == "v4l2":
+            with self._camera as cam:
+                yield from cam
+        elif self.backend == "native":
+            with native.NativeFramePipe(self.path, gray=self.gray) as pipe:
+                yield from pipe
+        elif self.backend == "pipe":
             yield from self._iter_pipe()
         elif self.backend == "ffmpeg":
             yield from self._iter_ffmpeg()
@@ -214,18 +248,33 @@ def read_frames(
     gray: bool = False,
 ) -> Iterator[np.ndarray]:
     """Frames [start::stride], up to max_frames of them (the reference demo's
-    frame scrubbing, OpticalFlowDemo.cpp:265-274). Frames before ``start``
-    are decoded and skipped, which is exact for any codec (the JAX
-    package's container seek needs the native decoder). gray=True yields
-    (H, W) luma (see VideoReader)."""
+    frame scrubbing, OpticalFlowDemo.cpp:265-274). With the native decoder
+    ``start`` seeks the container (av_seek_frame to the preceding keyframe,
+    then decode-discard to the exact frame); other backends, and streams
+    that cannot seek, decode and skip, which is exact for any codec.
+    gray=True yields (H, W) luma (see VideoReader)."""
     if stride < 1:
         raise ValueError("stride must be >= 1 (decode cannot run backwards)")
     reader = VideoReader(path, gray=gray)
+    source: Iterator[np.ndarray] = iter(reader)
+    base = 0
+    if start > 0 and reader.backend == "native":
+        try:
+            pipe = native.NativeFramePipe(reader.path, start=start, gray=gray)
+        except RuntimeError:
+            pass  # the stream cannot seek: decode and skip below
+        else:
+            source, base = _closing(pipe), start
     yielded = 0
-    for i, frame in enumerate(reader):
+    for i, frame in enumerate(source, start=base):
         if i < start or (i - start) % stride:
             continue
         if max_frames is not None and yielded >= max_frames:
             break
         yield frame
         yielded += 1
+
+
+def _closing(pipe) -> Iterator[np.ndarray]:
+    with pipe:
+        yield from pipe

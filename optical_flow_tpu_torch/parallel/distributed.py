@@ -15,14 +15,20 @@ A flow job across processes maps onto:
 The backend follows from where the ranks run: NCCL where every rank of a
 host has a card of its own, gloo on the CPU and where ranks share a card
 (NCCL refuses two ranks on one GPU); under gloo, CUDA tensors cross through
-pinned host memory. One process works through the same entry points:
-without a group every slot is this process's.
+pinned host memory. With a coordinator, the choice is made at the
+rendezvous: each rank posts its host (hostname and boot id) to the
+coordinator's store, binds a card by its index among its host's ranks, and
+posts that card's UUID; two ranks that bound the same card get gloo, so two
+hosts of one card each get NCCL without torchrun's variables. One process
+works through the same entry points: without a group every slot is this
+process's.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import socket
 from typing import Iterable, Iterator, Optional, Sequence
 
 import numpy as np
@@ -54,6 +60,60 @@ def choose_backend(local_ranks: int) -> str:
     return "gloo"
 
 
+def _hostname() -> str:
+    return socket.gethostname()
+
+
+def _boot_id() -> str:
+    """The kernel's boot id ('' where it cannot be read): sandboxes on two
+    machines may share a hostname, not this."""
+    try:
+        with open("/proc/sys/kernel/random/boot_id") as f:
+            return f.read().strip()
+    except OSError:
+        return ""
+
+
+def _card_id() -> str:
+    """The UUID of the card this process has bound ('' without a card)."""
+    if not torch.cuda.is_available():
+        return ""
+    i = torch.cuda.current_device()
+    uuid = getattr(torch.cuda.get_device_properties(i), "uuid", None)
+    return f"{_hostname()}/{_boot_id()}/{i}" if uuid is None else str(uuid)
+
+
+def _exchange(store, tag: str, rank: int, world: int, value: str) -> list:
+    """Every rank's ``value``, in rank order: each posts its own to
+    ``store`` and reads the others'."""
+    store.set(f"oft_{tag}/{rank}", value)
+    keys = [f"oft_{tag}/{r}" for r in range(world)]
+    store.wait(keys)
+    return [store.get(k).decode() for k in keys]
+
+
+def _host_ranks(store, rank: int, world: int) -> tuple:
+    """(ranks on this host, this rank's index among them): a host is a
+    hostname and a boot id."""
+    hosts = _exchange(store, "host", rank, world, f"{_hostname()}/{_boot_id()}")
+    mine = [r for r, h in enumerate(hosts) if h == hosts[rank]]
+    return len(mine), mine.index(rank)
+
+
+def _cards_backend(store, rank: int, world: int) -> str:
+    """'nccl' where every rank has bound a card and no two the same one,
+    else 'gloo': the UUIDs of the bound cards decide, not the hosts."""
+    cards = _exchange(store, "card", rank, world, _card_id())
+    return "nccl" if all(cards) and len(set(cards)) == world else "gloo"
+
+
+def _coordinator_store(address: str, rank: int, world: int):
+    """The rendezvous store on ``address`` ('host:port'): rank 0 serves it."""
+    host, port = address.rsplit(":", 1)
+    return dist.TCPStore(host.strip("[]"), int(port), world, is_master=rank == 0,
+                         timeout=TIMEOUT)
+
+
 def initialize_distributed(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
@@ -64,12 +124,18 @@ def initialize_distributed(
 
     A no-op when a group already exists (its backend is returned) or when
     nothing asks for more than one process (no arguments and no
-    ``WORLD_SIZE`` above 1). ``coordinator_address`` ('host:port') becomes
-    a ``tcp://`` rendezvous; without it torch's ``env://`` variables apply
-    (``MASTER_ADDR``, ``MASTER_PORT``; ``WORLD_SIZE`` and ``RANK`` where the
-    arguments leave them out). Each rank binds its card (``LOCAL_RANK``,
-    else its rank, modulo the cards) before the group is made. A launch
-    that claims several processes and comes up with another count raises."""
+    ``WORLD_SIZE`` above 1). ``coordinator_address`` ('host:port') is the
+    rendezvous, a TCP store that rank 0 serves; without it torch's
+    ``env://`` variables apply (``MASTER_ADDR``, ``MASTER_PORT``;
+    ``WORLD_SIZE`` and ``RANK`` where the arguments leave them out). Each
+    rank binds its card (``LOCAL_RANK``, else its index among its host's
+    ranks, modulo the cards) before the group is made. With a coordinator,
+    the ranks post to its store their host (hostname and boot id), to count
+    a host's ranks, and then the UUID of the card each bound: NCCL where
+    every rank bound a card of its own, gloo where two share one. Without
+    one, ``LOCAL_WORLD_SIZE`` (else the world) counts a host's ranks against
+    its cards. A launch that claims several processes and comes up with
+    another count raises."""
     if dist.is_initialized():
         return dist.get_backend()
     world = num_processes if num_processes is not None else _env_int("WORLD_SIZE")
@@ -78,15 +144,22 @@ def initialize_distributed(
     rank = process_id if process_id is not None else _env_int("RANK")
     if world is None or rank is None:
         raise ValueError("a group needs num_processes and process_id (or WORLD_SIZE and RANK)")
+    if coordinator_address is None:
+        store = None
+        local_ranks, host_index = _env_int("LOCAL_WORLD_SIZE") or world, rank
+    else:
+        store = _coordinator_store(coordinator_address, rank, world)
+        local_ranks, host_index = _host_ranks(store, rank, world)
     local_rank = _env_int("LOCAL_RANK")
-    local_rank = rank if local_rank is None else local_rank
-    local_ranks = _env_int("LOCAL_WORLD_SIZE") or world
+    local_rank = host_index if local_rank is None else local_rank
     if torch.cuda.is_available():
         torch.cuda.set_device(local_rank % torch.cuda.device_count())
-    backend = choose_backend(local_ranks)
-    init = "env://" if coordinator_address is None else f"tcp://{coordinator_address}"
-    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank,
-                            timeout=TIMEOUT)
+    if store is None:
+        backend = choose_backend(local_ranks)
+    else:
+        backend = _cards_backend(store, rank, world)
+    # without a store, torch reads the env:// variables
+    dist.init_process_group(backend, store=store, world_size=world, rank=rank, timeout=TIMEOUT)
     if dist.get_world_size() != world:
         got = dist.get_world_size()
         dist.destroy_process_group()

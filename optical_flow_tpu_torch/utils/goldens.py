@@ -5,10 +5,10 @@ The reference saves flow fields as space-separated ``%lf`` rows
 (`saveMat`, LKof.cpp:139-150) and regression-checks elementwise with
 threshold 1e-6 (serialOrig.cpp:575-636). These helpers read/write that exact
 format and locate the reference checkout (read-only) for parity tests.
-The JAX package's native strtod loader (``native/``) has no counterpart in
-the port yet, so ``load_mat`` reads with numpy. The checkout is found only
-through ``OPTICAL_FLOW_REFERENCE_DIR`` (the JAX package also looks in a
-fixed default directory).
+``load_mat`` parses with the native host runtime's strtod loader
+(``native.load_mat_native``) where the library loads, with numpy
+otherwise. The checkout is found only through ``OPTICAL_FLOW_REFERENCE_DIR``
+(the JAX package also looks in a fixed default directory).
 """
 
 from __future__ import annotations
@@ -34,7 +34,18 @@ def reference_dir() -> Optional[Path]:
 
 
 def load_mat(path) -> np.ndarray:
-    """Load a saveMat-format text matrix (448x640 doubles for the goldens)."""
+    """Load a saveMat-format text matrix (448x640 doubles for the goldens):
+    the native strtod parser where the library loads (~20x ``loadtxt``),
+    numpy otherwise or where the parser rejects the file's shape."""
+    from optical_flow_tpu_torch.native import load_library, load_mat_native
+
+    if load_library() is not None:
+        with open(path) as f:
+            cols = len(f.readline().split())
+            rows = 1 + sum(1 for _ in f)
+        mat = load_mat_native(path, rows, cols)
+        if mat is not None:
+            return mat
     return np.loadtxt(path, dtype=np.float64)
 
 

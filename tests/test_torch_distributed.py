@@ -18,12 +18,17 @@ dryrun_multichip, on the CPU.
                           rows lie on different ranks bit for bit, both
                           sharded solvers within 1e-6
   dryrun_multichip        its three legs on 4 and 8 CPU slots
+  the backend choice      initialize_distributed in two threads (two ranks)
+                          with the card count and each rank's hostname
+                          patched and the group's creation recorded: a
+                          host's ranks counted at the coordinator's store
 """
 
 import os
 import socket
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -111,6 +116,76 @@ def test_initialize_distributed_is_a_no_op_without_a_launch(monkeypatch):
     assert not torch.distributed.is_initialized()
     assert tdist.choose_backend(1) == ("nccl" if torch.cuda.is_available() else "gloo")
     assert tdist.choose_backend(torch.cuda.device_count() + 1) == "gloo"
+
+
+LAUNCHES = {  # rank hostnames, boot ids, cards a host, coordinator?, LOCAL_WORLD_SIZE
+    #              -> backend, cards bound
+    "one-host-2-cards": (("a", "a"), ("1", "1"), 2, True, None, "nccl", [0, 1]),
+    "two-hosts-1-card-each": (("a", "b"), ("1", "2"), 1, True, None, "nccl", [0, 0]),
+    # two sandboxed machines that report one hostname
+    "two-hosts-one-hostname": (("runsc", "runsc"), ("1", "2"), 1, True, None, "nccl", [0, 0]),
+    "one-card-2-ranks": (("a", "a"), ("1", "1"), 1, True, None, "gloo", [0, 0]),
+    "env-local-world-1": (("a", "b"), ("1", "2"), 1, False, "1", "nccl", [0, 0]),
+}
+
+
+@pytest.mark.parametrize("launch", list(LAUNCHES))
+def test_backend_choice_counts_each_hosts_ranks(monkeypatch, launch):
+    """Two ranks launched as the JAX package's tests/_distributed_worker.py
+    launches them (coordinator_address, num_processes, process_id; no
+    torchrun variables): NCCL wherever each rank bound a card of its own,
+    gloo where two ranks share one, whatever the hostnames say; without a
+    coordinator LOCAL_WORLD_SIZE counts the host's ranks."""
+    hosts, boots, cards, coordinator, local_world, want, want_cards = LAUNCHES[launch]
+    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                 "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    if local_world is not None:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local_world)
+    bound, made, errors = {}, {}, []
+
+    def rank_of_thread():
+        return int(threading.current_thread().name)
+
+    def card_id():  # a card is its machine's (hostname, boot id) and its index
+        r = rank_of_thread()
+        return f"{hosts[r]}/{boots[r]}/gpu{bound[r]}"
+
+    def init_process_group(backend, store=None, world_size=None, rank=None, timeout=None):
+        # the group keeps its store: rank 0 serves it until every rank is done
+        made[rank] = (backend, store, world_size)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda i: bound.__setitem__(rank_of_thread(), i))
+    monkeypatch.setattr(tdist, "_hostname", lambda: hosts[rank_of_thread()])
+    monkeypatch.setattr(tdist, "_boot_id", lambda: boots[rank_of_thread()])
+    monkeypatch.setattr(tdist, "_card_id", card_id)
+    monkeypatch.setattr(tdist.dist, "init_process_group", init_process_group)
+    monkeypatch.setattr(tdist.dist, "get_world_size", lambda: 2)
+
+    got = {}
+
+    def run(r):
+        try:
+            got[r] = tdist.initialize_distributed(
+                f"127.0.0.1:{port}" if coordinator else None, 2, r)
+        except Exception as e:  # reported below, with the rank
+            errors.append((r, repr(e)))
+
+    threads = [threading.Thread(target=run, args=(r,), name=str(r)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert got == {0: want, 1: want}
+    assert {r: (b, store is not None, w) for r, (b, store, w) in made.items()} == {
+        r: (want, coordinator, 2) for r in range(2)}
+    assert [bound[r] for r in range(2)] == want_cards
 
 
 def test_split_keeps_this_process_tiles():

@@ -41,7 +41,10 @@ def test_import_pulls_in_no_jax():
         "import optical_flow_tpu_torch.io.video_writer, optical_flow_tpu_torch.utils.metrics\n"
         "import optical_flow_tpu_torch.utils.guard, optical_flow_tpu_torch.utils.images\n"
         "import optical_flow_tpu_torch.utils.viz, optical_flow_tpu_torch.utils.goldens\n"
-        "import optical_flow_tpu_torch.utils.checkpoint\n"
+        "import optical_flow_tpu_torch.utils.checkpoint, optical_flow_tpu_torch.native\n"
+        "import pkgutil, importlib, optical_flow_tpu_torch.examples as ex\n"
+        "for m in pkgutil.iter_modules(ex.__path__):\n"
+        "    importlib.import_module(f'optical_flow_tpu_torch.examples.{m.name}')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'optical_flow_tpu' or m.startswith('optical_flow_tpu.'))\n"
         "assert not bad, bad\n"
@@ -194,6 +197,26 @@ def test_exports_cover_the_jax_package():
     assert t_serve._PipelinePool.MAX_FREE_PER_KEY == j_serve._PipelinePool.MAX_FREE_PER_KEY == 4
     assert callable(t_serve._make_config)
     assert not (PKG / "utils" / "compat.py").exists()
+    # native/: every public name of JAX's module (warm_compile_client is the
+    # TPU runtime's, imported inside its load_library, and has no
+    # counterpart) and its own copies of the C++ sources
+    jm, tm = importlib.import_module("optical_flow_tpu.native"), importlib.import_module(
+        "optical_flow_tpu_torch.native")
+    names = {n for n, v in vars(jm).items() if not n.startswith("_") and (
+        getattr(v, "__module__", None) == jm.__name__ or n.isupper())}
+    assert names >= {"load_library", "probe_native", "NativeFramePipe", "NativeCamera",
+                     "load_mat_native", "save_mat_native"}
+    assert all(callable(getattr(tm, n)) for n in names), sorted(n for n in names if not hasattr(tm, n))
+    assert not hasattr(tm, "warm_compile_client")
+    for src in ("framepipe.cpp", "v4l2cap.cpp"):
+        assert (PKG / "native" / src).exists()
+    # examples/: a module of the port for each script of the JAX package's,
+    # each with main(argv)
+    scripts = sorted(p.stem for p in (REPO / "examples").glob("*.py"))
+    assert len(scripts) == 14
+    for name in scripts:
+        mod = importlib.import_module(f"optical_flow_tpu_torch.examples.{name}")
+        assert callable(mod.main), name
 
 
 def _jax_track_configs():

@@ -384,14 +384,23 @@ def test_read_frames_scrubbing_matches_jax(tmp_path, scrub):
 
 
 def test_reader_backends(tmp_path, monkeypatch):
-    """'native' and 'v4l2' need the native loader (not ported): asked for by
-    name they refuse. 'auto' takes cv2 when ffmpeg is absent, and cameras
-    go through cv2 with the device index."""
+    """'native' and 'v4l2' go through the native host runtime: asked for by
+    name they raise where it cannot serve (a file its probe cannot open, a
+    missing camera) or, where libav is absent, with the library's reason;
+    they never decode elsewhere. 'auto' takes cv2 when neither the native
+    probe nor ffmpeg opens the file, and cameras go through cv2 with the
+    device index when there is no native camera."""
+    from optical_flow_tpu_torch import native
+
     path = tmp_path / "clip.avi"
     path.write_bytes(b"")
-    for backend in ("native", "v4l2"):
-        with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-            TVideoReader(str(path), backend=backend)
+    found = native.load_library() is not None
+    with pytest.raises(RuntimeError, match="native probe failed" if found else
+                       "native library unavailable: .*libav|native build failed"):
+        TVideoReader(str(path), backend="native")
+    with pytest.raises(RuntimeError, match="cam_open failed" if found else
+                       "native library unavailable"):
+        TVideoReader("/dev/video99", backend="v4l2")
     with pytest.raises(FileNotFoundError):
         TVideoReader(str(tmp_path / "missing.avi"))
 
@@ -408,8 +417,12 @@ def test_reader_backends(tmp_path, monkeypatch):
         def release(self):
             pass
 
+    def no_camera(*args, **kwargs):
+        raise RuntimeError("cam_open failed: no camera here")
+
     monkeypatch.setattr(cv2, "VideoCapture", FakeCap)
     monkeypatch.setattr(t_video_reader.shutil, "which", lambda name: None)
+    monkeypatch.setattr(native, "NativeCamera", no_camera)
     reader = TVideoReader(str(path))
     assert reader.backend == "cv2" and (reader.width, reader.height) == (640, 480)
     camera = TVideoReader("device:0")
