@@ -219,9 +219,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
      .run(prefetch=2) from the native reader equal bit for bit to the run
      on cv2's frames with exact counts (K2 11, K1 10, K3 30), the gray
      decode through the fast head equal to its frames pushed, then
-     io/prefetch.py's decode_s and put_s a frame and the decode ms a frame
-     of native and cv2, BGR and gray; where pkg-config misses any, one
-     line names them and (a) alone is skipped; (b) the 14 examples in
+     the prefetch worker's decode, put and HtoD ms a frame (its spans in a
+     profiling.trace()) and the decode ms a frame of native and cv2, BGR
+     and gray; where pkg-config misses any, one line names them and (a)
+     after cv2's staging ms is skipped; (b) the 14 examples in
      process through main(argv) (still_regression only with a reference
      checkout): video_gesture --fast at 1080^2 and live_gesture on 8
      frames of the clip with phase 4's counts (K2 7, K1 6, K3 18),
@@ -3771,16 +3772,39 @@ def write_clip(path, frames, fps=30.0):
 
 
 def staged_ms(source, device):
-    """io/prefetch.py's per-frame producer spans (chunks of one frame),
-    medians in ms: decode_s (pulling the frame from the reader) and put_s
-    (pinned staging and the copy to the card, waited for)."""
-    from optical_flow_tpu_torch.io.prefetch import prefetch_chunks_to_device
+    """io/prefetch.py's per-frame producer spans (chunks of one frame) in a
+    ``profiling.trace()`` of one pass over ``source``, medians in ms:
+    decode_ms (``prefetch.pull``: pulling the frame from the reader),
+    put_ms (``upload.pin`` and ``upload.stage``: the pinned copy and the
+    copy enqueued, on the worker's thread) and h2d_ms (the copy's HtoD
+    interval on the card)."""
+    import tempfile
 
-    spans = []
-    for _ in prefetch_chunks_to_device(source, 1, device=device, timings=spans):
-        pass
-    return {"decode_ms": 1e3 * float(np.median([s["decode_s"] for s in spans])),
-            "put_ms": 1e3 * float(np.median([s["put_s"] for s in spans])), "frames": len(spans)}
+    import torch
+
+    from optical_flow_tpu_torch.io.prefetch import prefetch_chunks_to_device
+    from optical_flow_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            for _ in prefetch_chunks_to_device(source, 1, device=device):
+                pass
+            torch.cuda.synchronize(device)
+        with open(f"{d}/trace.json") as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = {}
+    for e in events:
+        name, _, ident = e["name"].partition("#")
+        if name in ("prefetch.pull", "upload.pin", "upload.stage") and ident:
+            spans.setdefault(name, {})[int(ident)] = e["dur"] / 1e3
+    staged = sorted(spans.get("upload.stage", {}))
+    h2d = [e["dur"] / 1e3 for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+    if not staged or len(h2d) < len(staged):
+        raise AssertionError(f"the trace holds {len(staged)} staged frames, {len(h2d)} copies")
+    return {"decode_ms": float(np.median([spans["prefetch.pull"][i] for i in staged])),
+            "put_ms": float(np.median([spans["upload.pin"][i] + spans["upload.stage"][i]
+                                       for i in staged])),
+            "h2d_ms": float(np.median(h2d)), "frames": len(staged)}
 
 
 def gray_against_cv2(gray, bgr_cv2):
@@ -3815,6 +3839,10 @@ def phase_native_decode(device, frames, clip):
     out = {"pkg_config": {"flags": list(flags), "missing": list(missing), "versions": versions}}
     log(f"[18 a libav] {json.dumps(out['pkg_config'])}")
     write_clip(clip, frames)
+    out["staged_ms"] = {  # cv2's reader needs no libav
+        "cv2_bgr": staged_ms(VideoReader(clip, backend="cv2"), device),
+        "cv2_gray": staged_ms(VideoReader(clip, backend="cv2", gray=True), device)}
+    log(f"[18 a staged] {json.dumps(out['staged_ms'])}")
     if missing:
         log(json.dumps({"native": "unavailable", "missing": list(missing)}))
         return out, None
@@ -3866,11 +3894,8 @@ def phase_native_decode(device, frames, clip):
         "gray_vs_bgr_flow": {"median": float(d.median()), "q99": float(torch.quantile(
             d.double().cpu(), 0.99)), "votes": [(int(a.gesture.votes), int(b.gesture.votes))
                                                  for a, b in zip(got_gray, got)]}}
-    out["staged_ms"] = {
-        "native_bgr": staged_ms(read_frames(clip), device),
-        "cv2_bgr": staged_ms(VideoReader(clip, backend="cv2"), device),
-        "native_gray": staged_ms(read_frames(clip, gray=True), device),
-        "cv2_gray": staged_ms(VideoReader(clip, backend="cv2", gray=True), device)}
+    out["staged_ms"].update(native_bgr=staged_ms(read_frames(clip), device),
+                            native_gray=staged_ms(read_frames(clip, gray=True), device))
     decode = {}
     for name, make in (("native_bgr", lambda: VideoReader(clip, backend="native")),
                        ("cv2_bgr", lambda: VideoReader(clip, backend="cv2")),

@@ -18,6 +18,14 @@ the warm-up frames and the first frame (or chunk) of a shape run eagerly.
 ``graph=False`` keeps every step eager. A frame from the host reaches the
 card through pinned memory without blocking the host.
 
+Every step runs the stages ``stage.preprocess`` (resize, blur, gray),
+``stage.features`` (``diff_features``), ``stage.pyramid`` (pyramid reuse
+only), ``stage.flow`` (coarse to fine) and ``stage.gesture``; with the
+program's tracing on (``utils/profiling.set_tracing``) each is a span and,
+on a card, a pair of timing events (``profiling.stage``). A step run
+eagerly is the span ``step.eager`` and counts in ``profiling.counters``.
+Spans carry the index of the frame pushed, or of a chunk's first frame.
+
 With a ``mesh`` (parallel/mesh.py) every flow step goes through the
 mesh-sharded controller (parallel/sharded_flow.py), where the JAX
 pipeline sends it; the pipeline's device is the mesh's home device, where
@@ -27,6 +35,7 @@ stay eager.
 
 from __future__ import annotations
 
+from contextlib import contextmanager, nullcontext
 from typing import Dict, Iterable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -58,6 +67,7 @@ from optical_flow_tpu_torch.pipeline.preprocess import (
     gray_f32,
     preprocess_frame,
 )
+from optical_flow_tpu_torch.utils import profiling
 
 
 class FrameResult(NamedTuple):
@@ -163,7 +173,20 @@ class VideoPipeline:
 
     # --- stages -------------------------------------------------------------
 
-    def _upload(self, frame) -> torch.Tensor:
+    def _stage(self, name: str):
+        return profiling.stage(name, self.device)
+
+    @contextmanager
+    def _eager(self, ident: int, frames: int):
+        """A step run eagerly, ``frames`` the frames its result covers. A
+        warm-up frame (no result, ``frames`` 0) times no stage on the
+        device: its work would count against no frame."""
+        profiling.counters["step.eager"] += 1
+        marks = profiling.stage_marks(frames) if frames else nullcontext()
+        with profiling.span("step.eager", ident), marks:
+            yield
+
+    def _upload(self, frame, ident: Optional[int] = None) -> torch.Tensor:
         """A frame (or a batch) as a tensor on the pipeline's device. From the
         host to a card it is staged in pinned memory and copied without
         blocking the host. A read-only host array (``np.frombuffer`` of a
@@ -171,7 +194,7 @@ class VideoPipeline:
         if isinstance(frame, torch.Tensor) and frame.device == self.device:
             return frame
         if self.device.type == "cuda" and not (isinstance(frame, torch.Tensor) and frame.is_cuda):
-            return pinned_copy(frame).to(self.device, non_blocking=True)
+            return pinned_copy(frame, ident).to(self.device, non_blocking=True)
         if not isinstance(frame, torch.Tensor):
             a = np.asarray(frame)
             if not (a.flags.writeable and a.flags.c_contiguous):
@@ -181,50 +204,57 @@ class VideoPipeline:
 
     def _preprocess(self, frame) -> torch.Tensor:
         frame = self._upload(frame)
-        if self.config.preprocess.faithful_uint8:
-            return preprocess_frame(frame, self.config.preprocess)
-        x = gray_f32(frame)
-        key = tuple(x.shape[-2:])
-        if key not in self._resizers:
-            self._resizers[key] = ResizeBlur(key, self.config.preprocess).to(self.device)
-        return self._resizers[key](x)
+        with self._stage("stage.preprocess"):
+            if self.config.preprocess.faithful_uint8:
+                return preprocess_frame(frame, self.config.preprocess)
+            x = gray_f32(frame)
+            key = tuple(x.shape[-2:])
+            if key not in self._resizers:
+                self._resizers[key] = ResizeBlur(key, self.config.preprocess).to(self.device)
+            return self._resizers[key](x)
 
     def _diff(self, cur_gray, prev_gray):
-        return diff_features(cur_gray, prev_gray, self.config.preprocess)
+        with self._stage("stage.features"):
+            return diff_features(cur_gray, prev_gray, self.config.preprocess)
 
     def _build_pyr(self, diff):
-        return tuple(
-            gaussian_pyramid(
-                diff, max_pyramid_levels(diff.shape), impl=self.config.flow.pyr_impl
+        with self._stage("stage.pyramid"):
+            return tuple(
+                gaussian_pyramid(
+                    diff, max_pyramid_levels(diff.shape), impl=self.config.flow.pyr_impl
+                )
             )
-        )
 
     def _result(self, u, v) -> FrameResult:
-        return FrameResult(u, v, detect_gesture(u, v, self.config.gesture))
+        with self._stage("stage.gesture"):
+            return FrameResult(u, v, detect_gesture(u, v, self.config.gesture))
 
     def _flow_step(self, prev_diff, diff):
         levels = max_pyramid_levels(diff.shape)
         need = self.config.faithful_prev_diff
-        if self.mesh is not None:
-            u, v, _, warped_diff = sharded_coarse_to_fine_with_images(
-                prev_diff, diff, self.mesh, levels, config=self.config.flow, _need_images=need,
-            )
-        else:
-            u, v, _, warped_diff = coarse_to_fine_with_images(
-                prev_diff, diff, levels, config=self.config.flow, _need_images=need,
-            )
+        with self._stage("stage.flow"):
+            if self.mesh is not None:
+                u, v, _, warped_diff = sharded_coarse_to_fine_with_images(
+                    prev_diff, diff, self.mesh, levels, config=self.config.flow,
+                    _need_images=need,
+                )
+            else:
+                u, v, _, warped_diff = coarse_to_fine_with_images(
+                    prev_diff, diff, levels, config=self.config.flow, _need_images=need,
+                )
         next_prev = warped_diff if need else diff
         return self._result(u, v), next_prev
 
     def _flow_from_pyr_pairs(self, prev_pyr, pyr):
         """Flow and gesture of the pairs (prev_pyr[k], pyr[k]): one frame pair,
         or a batch of them as the pyramids' leading axis."""
-        if self.mesh is not None:
-            u, v, _, _ = sharded_coarse_to_fine_pyramids(
-                prev_pyr, pyr, self.mesh, config=self.config.flow
-            )
-        else:
-            u, v, _, _ = coarse_to_fine_pyramids(prev_pyr, pyr, config=self.config.flow)
+        with self._stage("stage.flow"):
+            if self.mesh is not None:
+                u, v, _, _ = sharded_coarse_to_fine_pyramids(
+                    prev_pyr, pyr, self.mesh, config=self.config.flow
+                )
+            else:
+                u, v, _, _ = coarse_to_fine_pyramids(prev_pyr, pyr, config=self.config.flow)
         return self._result(u, v)
 
     # --- steady steps: step(x, *state) -> (result, new state) ----------------
@@ -266,41 +296,48 @@ class VideoPipeline:
         prev = tuple(torch.cat([pp[None], p[:-1]], dim=0) for pp, p in zip(prev_pyr, pyr))
         return self._flow_from_pyr_pairs(prev, pyr), (grays[-1], *(p[-1] for p in pyr))
 
-    def _run_step(self, step, x, state):
+    def _run_step(self, step, x, state, ident: int, frames: int):
         """``step(x, *state)``: eager, or through its CUDA graph for these
-        shapes (captured after an eager warm-up on this first call)."""
+        shapes (captured after an eager warm-up on this first call).
+        ``ident``: the first frame's index; ``frames``: the frames the
+        result covers."""
         if not self.graph:
-            return step(self._upload(x), *state)
+            with self._eager(ident, frames):
+                return step(self._upload(x, ident), *state)
         if not (isinstance(x, torch.Tensor) and x.is_cuda):
-            x = pinned_copy(x)  # a host frame: copied to the card without blocking
+            x = pinned_copy(x, ident)  # a host frame: copied to the card without blocking
         key = (step.__name__, tuple(x.shape), x.dtype,
                tuple((tuple(s.shape), s.dtype) for s in state))
         g = self._graphs.get(key)
         if g is None:
             x = x.to(self.device, non_blocking=True)
-            result, new = run_on_side_stream(step, x, *state, device=self.device)
-            self._graphs[key] = StepGraph(step, x, new)
+            with self._eager(ident, frames):
+                result, new = run_on_side_stream(step, x, *state, device=self.device)
+            self._graphs[key] = StepGraph(step, x, new, frames)
             return result, new
-        return g.replay(x, state)
+        return g.replay(x, state, ident)
 
     # --- host loops -----------------------------------------------------------
 
     def push(self, frame) -> Optional[FrameResult]:
         """Feed one frame; returns a FrameResult once warmed up (two warm-up
         frames: one for prevFrame, one for prevDiff)."""
+        ident = self._frame_idx
         self._frame_idx += 1
         if self._prev_gray is None:
-            self._prev_gray = self._preprocess(frame)
+            with self._eager(ident, 0):
+                self._prev_gray = self._preprocess(self._upload(frame, ident))
             return None
         if self._prev_diff is None:
-            gray = self._preprocess(frame)
-            self._prev_diff = self._diff(gray, self._prev_gray)
-            self._prev_gray = gray
-            if self._reuse_pyramids:
-                self._prev_pyr = self._build_pyr(self._prev_diff)
+            with self._eager(ident, 0):
+                gray = self._preprocess(self._upload(frame, ident))
+                self._prev_diff = self._diff(gray, self._prev_gray)
+                self._prev_gray = gray
+                if self._reuse_pyramids:
+                    self._prev_pyr = self._build_pyr(self._prev_diff)
             return None
         step = self._step_pyr if self._reuse_pyramids else self._step_images
-        result, state = self._run_step(step, frame, self._carried())
+        result, state = self._run_step(step, frame, self._carried(), ident, 1)
         self._carry(state)
         return result
 
@@ -349,11 +386,14 @@ class VideoPipeline:
                 if chunk.shape[0] < chunk_size:
                     tail = chunk
                     break
+                n = int(chunk.shape[0])
                 if self._prev_gray is None:
-                    result, carry = self._chunk_first(chunk)
+                    with self._eager(self._frame_idx, n - 2):
+                        result, carry = self._chunk_first(chunk)
                 else:
-                    result, carry = self._run_step(self._chunk_step, chunk, self._carried())
-                self._frame_idx += int(chunk.shape[0])
+                    result, carry = self._run_step(self._chunk_step, chunk, self._carried(),
+                                                   self._frame_idx, n)
+                self._frame_idx += n
                 # seed the streaming state from the carry on EVERY chunk,
                 # before the yield: state() and a later push() continue the
                 # pair sequence, also after the consumer exits early
@@ -376,18 +416,20 @@ class VideoPipeline:
                 "batched mode needs faithful_prev_diff=False (the warped-diff "
                 "feedback is a sequential dependency)"
             )
-        grays = self._preprocess(frames)
-        diffs = self._diff(grays[1:], grays[:-1])
-        if self.mesh is not None:
-            u, v = sharded_coarse_to_fine(
-                diffs[:-1], diffs[1:], self.mesh, max_pyramid_levels(diffs.shape),
-                config=self.config.flow,
-            )
-            return self._result(u, v)
-        pyr = self._build_pyr(diffs)
-        prev = tuple(p[:-1] for p in pyr)
-        cur = tuple(p[1:] for p in pyr)
-        return self._flow_from_pyr_pairs(prev, cur)
+        with self._eager(0, len(frames) - 2):
+            grays = self._preprocess(frames)
+            diffs = self._diff(grays[1:], grays[:-1])
+            if self.mesh is not None:
+                with self._stage("stage.flow"):
+                    u, v = sharded_coarse_to_fine(
+                        diffs[:-1], diffs[1:], self.mesh, max_pyramid_levels(diffs.shape),
+                        config=self.config.flow,
+                    )
+                return self._result(u, v)
+            pyr = self._build_pyr(diffs)
+            prev = tuple(p[:-1] for p in pyr)
+            cur = tuple(p[1:] for p in pyr)
+            return self._flow_from_pyr_pairs(prev, cur)
 
 
 def replay_video(path, config: Optional[VideoConfig] = None, max_frames: Optional[int] = None,

@@ -10,9 +10,26 @@ optical_flow_tpu/utils/profiling.py).
   host even where one call is shorter than a launch's host cost.
   ``device_loop_time`` is the JAX package's name for it: seconds per call
   on perturbed copies of the first input.
-- ``trace``: a ``torch.profiler`` trace written as a Chrome trace file;
+- ``trace``: a ``torch.profiler`` trace of every thread written as a Chrome
+  trace file, with the program's spans on (``set_tracing``);
   ``device_seconds_from_trace`` sums the device spans of the kernels of a
   name in it (None when the trace missed calls).
+- ``span(name, ident)``: one of the program's spans, a profiler range named
+  ``name`` or, with ``ident`` (a frame index), ``name#ident``, while
+  tracing is on (``set_tracing``), else one shared no-op context. The
+  spans share the profiler's clock with the device trace, on every thread
+  the profiler records (``profiler_config``).
+- ``stage(name, device)``: a pipeline stage of a step; with tracing on, a
+  span and, on a card, a pair of CUDA timing events on the current stream.
+  A step collects its stages' events (``stage_marks``); in a graph capture
+  they are external events, so every replay times its own stages. The
+  elapsed times are read lazily, once a recording's last event has
+  completed (``poll_stages`` before each step, ``flush_stages`` for what is
+  left), into device ms and frames by stage (``stage_totals``).
+- ``counters``: the program's counts by name, a dict of ints incremented
+  where the work happens, always on (``read_counters``,
+  ``reset_counters``); the kernels' launches are
+  ``kernels.launch_counts()``.
 - ``kernel_cost``: the bytes and operations of one call of a kernel, from
   its tensors and shapes. Each input byte is counted read once and each
   output byte written once; the operations are counted from the kernel's
@@ -34,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, NamedTuple, Optional, Sequence
@@ -248,11 +266,211 @@ def device_loop_time(fn: Callable, args: Sequence, iters: int = 30) -> float:
     return time_use_once(fn, sets, device=x.device) / 1e3
 
 
+# ----------------------------------------------- the program's spans and counters
+
+_tracing = False
+_OFF = contextlib.nullcontext()
+
+# The program's counts: graphs captured and replayed, replays that copied in
+# a state not the graph's own, steps run eagerly, replays whose stage times
+# were recorded over before they were read.
+counters: Dict[str, int] = dict.fromkeys(
+    ("graph.captures", "graph.replays", "graph.state_copy_ins", "step.eager", "stage.unread"), 0)
+
+
+def set_tracing(on: bool) -> bool:
+    """Turn the program's spans and stage timings on or off; returns the
+    setting before. A graph captured while tracing is off holds no stage
+    events, so turn it on before the pipeline's first steps. Turning it off
+    drops the stage recordings not read yet (``flush_stages`` first keeps
+    them); a graph captured while it was on keeps its event-record nodes,
+    which nothing reads until tracing is on again."""
+    global _tracing
+    before, _tracing = _tracing, bool(on)
+    if not _tracing:
+        with _stage_lock:
+            _unread.clear()
+    return before
+
+
+def tracing() -> bool:
+    return _tracing
+
+
+def _range(name: str):
+    # record_function's range goes through the dispatcher and costs about
+    # 13 us of host time a span; this one 1-2 us
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+def span(name: str, ident: Optional[int] = None):
+    """The program's span ``name`` over a block while tracing is on, named
+    ``name#ident`` where ``ident`` (the frame index of a push, the first
+    frame of a chunk) is given: a profiler keeps a range's arguments only
+    where it records inputs, and never on a thread other than its own.
+    While tracing is off, a shared no-op context."""
+    if not _tracing:
+        return _OFF
+    return _range(name if ident is None else f"{name}#{ident}")
+
+
+def profiler_config():
+    """The profiler's settings that record every thread's ranges (the
+    prefetch worker's among them), or None where this torch has none: by
+    default a profiler records only the thread that started it."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
+
+
+def read_counters() -> Dict[str, int]:
+    return dict(counters)
+
+
+def reset_counters() -> None:
+    for name in counters:
+        counters[name] = 0
+
+
+_stage_ms: Dict[str, float] = {}
+_stage_frames: Dict[str, int] = {}
+_unread: list = []  # StageMarks recorded and not read yet
+_stage_lock = threading.Lock()
+_open = threading.local()  # .marks: the StageMarks of the step this thread runs
+
+
+class StageMarks:
+    """The stage events of one step, (stage, start, end) in order, and the
+    frames its result covers. An eager step records them once; a captured
+    step's are event-record nodes of its graph, which every replay records
+    again."""
+
+    def __init__(self, frames: int):
+        self.frames = int(frames)
+        self.events: list = []
+
+    def done(self) -> bool:
+        return self.events[-1][2].query()
+
+    def read(self) -> None:
+        for name, start, end in self.events:
+            _stage_ms[name] = _stage_ms.get(name, 0.0) + start.elapsed_time(end)
+        for name in {e[0] for e in self.events}:
+            _stage_frames[name] = _stage_frames.get(name, 0) + self.frames
+
+
+def poll_stages(recording_over: Optional[StageMarks] = None) -> None:
+    """Read the stage times of every recording whose last event has
+    completed. ``recording_over``: a graph's marks about to be recorded
+    again by its next replay; if its last replay has not completed, that
+    replay's times are dropped and counted in ``stage.unread``."""
+    if not _unread:
+        return
+    with _stage_lock:
+        keep = []
+        for m in _unread:
+            if m.done():
+                m.read()
+            elif m is recording_over:
+                counters["stage.unread"] += 1
+            else:
+                keep.append(m)
+        _unread[:] = keep
+
+
+def queue_stages(marks: StageMarks) -> None:
+    """A recording of ``marks`` was made (an eager step ran, a graph was
+    replayed): read it once it has completed."""
+    with _stage_lock:
+        _unread.append(marks)
+
+
+def flush_stages() -> None:
+    """Wait for every recording not read yet and read it."""
+    with _stage_lock:
+        for m in _unread:
+            m.events[-1][2].synchronize()
+            m.read()
+        _unread.clear()
+
+
+def stage_totals() -> Dict[str, Dict[str, float]]:
+    """Device ms by stage, and the frames the read steps cover."""
+    return {n: {"ms": ms, "frames": _stage_frames.get(n, 0)} for n, ms in _stage_ms.items()}
+
+
+def reset_stages() -> None:
+    with _stage_lock:
+        _stage_ms.clear()
+        _stage_frames.clear()
+        _unread.clear()
+
+
+@contextlib.contextmanager
+def stage_marks(frames: int, queue: bool = True):
+    """Collect the stage events of one step on this thread; yields its
+    ``StageMarks`` (None while tracing is off). ``queue``: read them once
+    they complete (an eager step); a graph keeps its own and queues them at
+    each replay. Reads what earlier steps left first."""
+    if not _tracing:
+        yield None
+        return
+    poll_stages()
+    marks, outer = StageMarks(frames), getattr(_open, "marks", None)
+    _open.marks = marks
+    try:
+        yield marks
+    finally:
+        _open.marks = outer
+    if queue and marks.events:
+        queue_stages(marks)
+
+
+class _Stage:
+    def __init__(self, name: str, device: torch.device):
+        self.name, self.device = name, device
+        self.range = _range(name)
+
+    def __enter__(self):
+        self.range.__enter__()
+        marks = getattr(_open, "marks", None)
+        self.marks = marks if self.device.type == "cuda" else None
+        if self.marks is not None:
+            self.stream = torch.cuda.current_stream(self.device)
+            self.start = self._event()
+        return self
+
+    def _event(self):
+        # inside a capture an external event becomes an event-record node
+        e = torch.cuda.Event(enable_timing=True,
+                             external=torch.cuda.is_current_stream_capturing())
+        e.record(self.stream)
+        return e
+
+    def __exit__(self, *exc):
+        if self.marks is not None:
+            self.marks.events.append((self.name, self.start, self._event()))
+        return self.range.__exit__(*exc)
+
+
+def stage(name: str, device) -> contextlib.AbstractContextManager:
+    """Pipeline stage ``name`` of a step on ``device``: while tracing is on,
+    a span and, on a card inside ``stage_marks``, a pair of timing events
+    on the current stream around the stage's work."""
+    if not _tracing:
+        return _OFF
+    return _Stage(name, torch.device(device))
+
+
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
-    """``torch.profiler`` over the block (CPU activity, and CUDA where a card
-    is present), written on exit as a Chrome trace, ``log_dir/trace.json``
-    (a new temporary directory if none is given); yields ``log_dir``."""
+    """``torch.profiler`` over the block (CPU activity of every thread, and
+    CUDA where a card is present), with the program's spans on, written on
+    exit as a Chrome trace, ``log_dir/trace.json`` (a new temporary
+    directory if none is given); yields ``log_dir``. A CUDA graph captured
+    inside the block holds its stages' timing events, and keeps them as
+    event-record nodes after it."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -262,8 +480,12 @@ def trace(log_dir: Optional[str] = None):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield log_dir
+    before = set_tracing(True)
+    try:
+        with profile(activities=activities, experimental_config=profiler_config()) as prof:
+            yield log_dir
+    finally:
+        set_tracing(before)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 

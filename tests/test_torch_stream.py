@@ -45,6 +45,7 @@ from optical_flow_tpu_torch.kernels import _lib
 from optical_flow_tpu_torch.parallel.mesh import flow_mesh
 from optical_flow_tpu_torch.pipeline.video import VideoPipeline as TVideoPipeline
 from optical_flow_tpu_torch.pipeline.video import replay_video as t_replay_video
+from optical_flow_tpu_torch.utils import profiling as t_profiling
 from test_torch_slice import _assert_flow_close, _assert_results_close, _configs, _frames
 
 CHUNK_SIZE = 5  # 13 frames: two chunks of 5 and a 3-frame tail
@@ -131,20 +132,37 @@ def test_prefetch_yields_the_frames_on_the_device_named():
 
 
 def test_prefetch_chunk_timings_tap():
-    """Per-chunk producer spans (decode pull, staging and copy) land in the
-    caller's list, and the staged chunks are unchanged."""
+    """The chunk prefetcher's producer spans (the pull from upstream, the
+    stacking and the staging of each chunk, with its first frame's index)
+    are drawn on the worker's thread while tracing is on, and the staged
+    chunks are the same with tracing off."""
     frames = [np.full((8, 10), i, np.uint8) for i in range(10)]
-    timings = []
-    chunks = list(prefetch_chunks_to_device(iter(frames), chunk_size=4, device="cpu",
-                                            timings=timings))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                experimental_config=t_profiling.profiler_config()) as prof:
+        before = t_profiling.set_tracing(True)
+        try:
+            chunks = list(prefetch_chunks_to_device(iter(frames), chunk_size=4, device="cpu"))
+        finally:
+            t_profiling.set_tracing(before)
     assert [tuple(c.shape) for c in chunks] == [(4, 8, 10), (4, 8, 10), (2, 8, 10)]
     np.testing.assert_array_equal(chunks[1][0].numpy(), frames[4])
-    assert len(timings) == 3
-    for t in timings:
-        assert set(t) == {"decode_s", "put_s"}
-        assert t["decode_s"] >= 0 and t["put_s"] >= 0
-    # the untimed path stages the same chunks
-    chunks2 = list(prefetch_chunks_to_device(iter(frames), chunk_size=4, device="cpu"))
+    spans = {}
+    for e in prof.events():
+        name, _, ident = e.name.partition("#")
+        if name in ("prefetch.pull", "upload.pin", "upload.stage", "prefetch.wait"):
+            spans.setdefault(name, []).append((int(ident), e))
+    for name in ("prefetch.pull", "upload.pin", "upload.stage"):
+        assert sorted(i for i, _ in spans[name]) == [0, 4, 8]
+    # the consumer's waits: the three chunks and the end of the stream
+    assert sorted(i for i, _ in spans["prefetch.wait"]) == [0, 4, 8, 12]
+    spans = {name: [e for _, e in v] for name, v in spans.items()}
+    assert {e.thread for e in spans["prefetch.pull"]} == {e.thread for e in spans["upload.pin"]}
+    assert {e.thread for e in spans["prefetch.pull"]}.isdisjoint(
+        {e.thread for e in spans["prefetch.wait"]})
+    # tracing off: no span, the same chunks
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        chunks2 = list(prefetch_chunks_to_device(iter(frames), chunk_size=4, device="cpu"))
+    assert not [e for e in prof.events() if e.name.startswith(("prefetch.", "upload."))]
     for a, b in zip(chunks, chunks2):
         assert torch.equal(a, b)
 
