@@ -19,7 +19,7 @@ and phase 18 alone.)
 Phases, each printing one line (any failure raises and exits non-zero):
   1. device: the card's name and its nvidia-smi name/power-limit line;
   2. build: compile the CUDA kernels from optical_flow_tpu_torch/kernels/csrc,
-     and print what the compiler allotted K1-K5, S1, P1 and S2-S4
+     and print what the compiler allotted K1-K5, S1, W1, P1 and S2-S4
      (registers, spills); compile csrc/probes.cu to PTX and fail unless
      S4's kernels multiply and add with mul.rn and add.rn (packed bf16x2
      in the bfloat16 ones), with no fma and, in bfloat16, no conversion,
@@ -60,7 +60,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
   9. the reference-parity slice: VideoPipeline(VideoConfig()) (faithful
      uint8 preprocess, reference mode, gather warp, warped diff fed back) on
      phase 4's frames, once through the kernels (K1 at all four levels, S1
-     between them) and once with FlowConfig(impl='torch'), flows and votes
+     between them, W1 the warp of the three finer levels) and once with
+     FlowConfig(impl='torch'), flows and votes
      compared, exact launch counts; the card's uint8 gray against the CPU's;
      then phase 6's profiles of the kernel path in this configuration
      (chiprun_out/profile_reference_{eager,graph}.json);
@@ -168,7 +169,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
      FlowServer(mesh=2x2 tile grid on the card) equal too, with phase 7's
      counts (K5 per tile, P1 once per tile); (b) two clients on two
      threads (frames of seeds 0 and 1) at once, each equal to its direct
-     run; a faithful stream at 256^2 (K1 and S1) equal to its direct run
+     run; a faithful stream at 256^2 (K1, S1 and W1) equal to its direct run
      with the same counts; one stream over a Unix socket; the JAX package's
      impl="pallas" building the impl="cuda" pipeline; (c) `python -m
      optical_flow_tpu_torch video --fast --size 1080 --metrics` on the
@@ -237,7 +238,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
      two ranks on the one card chose: gloo.
 Phase 3 also holds S1 at the three upsamples of a 1080^2 frame, and over
 a ragged sweep at odd and even coarse widths on both sides of its
-launcher's strip rule, bit for bit, and K1 at every level of the reference path, and times the one
+launcher's strip rule, bit for bit, W1 (the 'gather' warp of both frames)
+at the three warped levels of a 1080^2 frame with flows of up to 40 px and
+over a sweep of its vector widths and uint8 frames, bit for bit, and K1 at
+every level of the reference path, and times the one
 PyTorch call that computes K2's and S1's function (cuDNN convolutions,
 TF32 off; the pyramid's: one a level). At the end, whether the pyramid's
 grids (one a level, programmatic dependent launch) can be captured into a
@@ -304,6 +308,12 @@ K1_SWEEP = [(2, 135, 271), (3, 3), (3, 7), (2, 7, 57), (9, 60), (15, 31), (17, 8
 # S1's ragged sweep at odd and even coarse widths (8-byte and 16-byte stores),
 # on both sides of the launcher's rule: 1 coarse row a thread, and 2 from the
 # grid of a 540^2 coarse flow or a batch that large (the last four)
+# W1: reference mode's warped levels of a 1080^2 frame; its sweep, each shape
+# at both forms (quantized, floor): widths by 4, by 2 and odd (4, 2 and 1
+# outputs a thread), a batch, tiny planes
+W1_SHAPES = [(270, 270), (540, 540), (1080, 1080)]
+W1_SWEEP = [(4, 1080, 1080), (2, 61, 37), (37, 59), (135, 270), (3, 7, 6), (1, 1), (1, 9),
+            (9, 1)]
 S1_SWEEP = [(2, 135, 135), (270, 271), (1, 1), (1, 9), (9, 1), (2, 7, 5), (33, 64), (31, 130),
             (2, 17, 66), (540, 541), (537, 530), (543, 511), (8, 135, 136)]
 # K3-K5 follow their plain versions operation for operation: held to 0 on the
@@ -597,6 +607,9 @@ def phase_kernels(device, iters=20):
         pyrup_warp_lk_cuda, pyrup_warp_lk_plain, warp_lk_cuda, warp_lk_plain,
     )
     from optical_flow_tpu_torch.kernels.pyrup_kernel import pyr_up_pair_cuda, pyr_up_pair_plain
+    from optical_flow_tpu_torch.kernels.remap_kernel import (
+        symmetric_remap_cuda, symmetric_remap_plain,
+    )
     from optical_flow_tpu_torch.kernels.tile_copy_kernel import tile_copy_cuda, tile_copy_plain
     from optical_flow_tpu_torch.kernels.warp_lk_kernel import pyrup_coarse_halo
     from optical_flow_tpu_torch.ops.pyramid import (
@@ -814,6 +827,32 @@ def phase_kernels(device, iters=20):
         log(f"  pyrup sweep {'x'.join(map(str, shape))}: max|err| {err:.3g}")
         if err != 0.0:
             raise AssertionError(f"pyrup sweep at {shape}: max|err| {err:.3g}, want 0")
+    # W1 at the warped levels: smooth flows of tens of px (reference-mode flow
+    # is not a displacement) with per-pixel noise; no PyTorch call computes
+    # cv::remap's fixed-point bilinear, so no library time
+    for shape in W1_SHAPES:
+        a, b = t(rng.rand(*shape)), t(rng.rand(*shape))
+        u, v = (f + t(rng.uniform(-2.0, 2.0, shape)) for f in flow_pair(shape, 20.0))
+        out, ref = symmetric_remap_cuda(a, b, u, v), symmetric_remap_plain(a, b, u, v)
+        torch.cuda.synchronize()
+        err = levels_err(out, ref)
+        ms, pms = time_pair(lambda: symmetric_remap_plain(a, b, u, v),
+                            lambda: symmetric_remap_cuda(a, b, u, v), iters)
+        record("remap", shape, err, ms, pms, 0.0, kernel_cost("remap", [a, b, u, v], list(out)),
+               device_ms=use_once(symmetric_remap_cuda, (a, b, u, v), FLOW_RANGES))
+    # W1's sweep (not timed): both forms, uint8 frames of a batch, bit for bit
+    for shape in W1_SWEEP:
+        a, b = t(rng.rand(*shape) * 255.0), t(rng.rand(*shape) * 255.0)
+        u, v = t(rng.uniform(-40.0, 40.0, shape)), t(rng.uniform(-40.0, 40.0, shape))
+        err = max(levels_err(symmetric_remap_cuda(a, b, u, v, quantize=q),
+                             symmetric_remap_plain(a, b, u, v, quantize=q)) for q in (True, False))
+        a8, b8 = a.to(torch.uint8), b.to(torch.uint8)
+        err = max(err, levels_err(symmetric_remap_cuda(a8, b8, u, v),
+                                  symmetric_remap_plain(a8, b8, u, v)))
+        results["remap"].setdefault("sweep", []).append({"shape": list(shape), "max_abs_err": err})
+        log(f"  remap sweep {'x'.join(map(str, shape))}: max|err| {err:.3g}")
+        if err != 0.0:
+            raise AssertionError(f"remap sweep at {shape}: max|err| {err:.3g}, want 0")
     for shape in K2_SHAPES:
         x = t(rng.rand(*shape) * 255.0)
         y1, y0 = pyr_down_cuda(x), pyr_down_plain(x)
@@ -1133,8 +1172,8 @@ def phase_reference(device, frames):
     """VideoPipeline(VideoConfig()) on phase 4's frames: the faithful uint8
     head, reference mode (the flow not doubled between levels, S1 as the
     upsample), the unbounded gather warp and the warped diff kept as the
-    next prevDiff. Per result frame: K1 at the four levels, S1 three
-    times. Once through the kernels and once with impl='torch' (the plain
+    next prevDiff. Per result frame: K1 at the four levels, S1 and W1
+    three times each. Once through the kernels and once with impl='torch' (the plain
     path), which must launch nothing."""
     import dataclasses
 
@@ -1161,7 +1200,8 @@ def phase_reference(device, frames):
     if kernels.launch_counts() != counts:
         raise AssertionError("the plain reference path launched a kernel")
     F = len(frames)
-    check_counts("reference slice", counts, {"oft_lk": 4 * (F - 2), "oft_pyrup": 3 * (F - 2)})
+    check_counts("reference slice", counts, {"oft_lk": 4 * (F - 2), "oft_pyrup": 3 * (F - 2),
+                                             "oft_remap": 3 * (F - 2)})
     if len(res_k) != F - 2:
         raise AssertionError(f"expected {F - 2} results, got {len(res_k)}")
     if any(tuple(r.u.shape) != (SIZE, SIZE) for r in res_k):
@@ -4151,6 +4191,10 @@ def main() -> int:
         m = re.search(r"pyrup_strip_kernelILi(\d+)ELb(\d)E", line)
         log(f"  ptxas pyrup_strip_kernel<rows={m[1]}, quad={m[2]}>: {line.split(': ', 1)[1]}"
             if m else f"  ptxas {line}")
+    for line in _lib.ptxas_info("remap_pair_kernel"):
+        m = re.search(r"remap_pair_kernelI(\w+?)Li(\d)ELb(\d)E", line)
+        log(f"  ptxas remap_pair_kernel<{'uint8' if m and m[1] == 'h' else 'float'}, vec={m[2]}, "
+            f"quantize={m[3]}>: {line.split(': ', 1)[1]}" if m else f"  ptxas {line}")
     for kernel in ("pyrdown_kernel", "tile_copy", "interleave", "colsum", "mul_add_chain"):
         for line in _lib.ptxas_info(kernel):
             log(f"  ptxas {line}")
@@ -4246,8 +4290,8 @@ def main() -> int:
     # streaming VideoPipeline.push run (phase 4) drives K2-K3, K4 runs on the
     # controller path, coarse_to_fine with level_iters=2 (phase 5), K5's K3
     # mode and P1 on the mesh stream (phase 7), K5's K4 mode on the mesh
-    # controller with level_iters=2 (phase 8), K1 at all four levels and S1
-    # on the reference stream (phase 9; phase 3 times K1 at those four
+    # controller with level_iters=2 (phase 8), K1 at all four levels, S1 and
+    # W1 on the reference stream (phase 9; phase 3 times K1 at those four
     # shapes), and the probes S2-S4 in their own run (phase 10).
     meta = {
         "lk": (("oft_lk",), "reference", "optical_flow_tpu_torch/kernels/csrc/lk.cu",
@@ -4272,6 +4316,8 @@ def main() -> int:
                       "optical_flow_tpu/parallel/vma_compat.py:44"),
         "pyrup": (("oft_pyrup",), "reference", "optical_flow_tpu_torch/kernels/csrc/pyrup.cu",
                   "scripts/tpu_pyrup_poc.py:40"),
+        "remap": (("oft_remap",), "reference", "optical_flow_tpu_torch/kernels/csrc/remap.cu",
+                  "none (the JAX warp, optical_flow_tpu/ops/warp.py:50, is an XLA gather)"),
         "interleave": (("oft_interleave_cols_f2", "oft_interleave_cols_smem", "oft_interleave_rows"),
                        "probes", "optical_flow_tpu_torch/kernels/csrc/probes.cu",
                        "scripts/tpu_interleave_poc.py:76"),
@@ -4320,10 +4366,11 @@ def main() -> int:
     if any(runs["vi"].values()) or not runs["slam_imu"]["oft_pyramid"]:
         raise AssertionError(f"phase 15 launches: VI {runs['vi']}, slam --imu {runs['slam_imu']}")
     # phase 16's runs: a served fast stream launches what phase 4's does (K2,
-    # K1, K3, exactly, asserted in the phase), a faithful one K1 and S1, a
-    # mesh-served one what phase 7's does (K5, P1)
+    # K1, K3, exactly, asserted in the phase), a faithful one K1, S1 and W1,
+    # a mesh-served one what phase 7's does (K5, P1)
     if runs["serve"] != runs["stream"] or runs["serve_mesh"] != runs["mesh_stream"] or not (
-            runs["serve_faithful"]["oft_lk"] and runs["serve_faithful"]["oft_pyrup"]):
+            runs["serve_faithful"]["oft_lk"] and runs["serve_faithful"]["oft_pyrup"]
+            and runs["serve_faithful"]["oft_remap"]):
         raise AssertionError(f"phase 16 launches: {runs['serve']}, {runs['serve_faithful']}, "
                              f"{runs['serve_mesh']}")
 

@@ -7,7 +7,8 @@ warp, the inter-level step runs on K3 (``level_step``) and every other
 warp+solve on K4 (``warp_solve``); every LK solve outside those runs on
 K1 through ``lucas_kanade`` (with the exact ``'shift'`` or the
 ``'gather'`` warp, every level's solve); reference mode's inter-level
-upsample runs on S1 (``upsample``).
+upsample runs on S1 (``upsample``), and the ``'gather'`` warp of both
+frames on W1 (``warp``).
 """
 
 from __future__ import annotations
@@ -111,6 +112,28 @@ def _resolve_level_step(config: FlowConfig, max_disp: int, warp_solve):
     return level_step
 
 
+def _resolve_warp(config: FlowConfig, warp_impl: str, max_disp: int, is_cuda: bool):
+    """The level warp for run_pyramid: W1 on the kernel route with the
+    ``'gather'`` warp, else ``symmetric_warp``."""
+    if warp_impl == "gather" and use_cuda(config.impl, is_cuda):
+        from optical_flow_tpu_torch.kernels.remap_kernel import symmetric_remap_cuda
+
+        def remap(_i, a, b, u, v):
+            return symmetric_remap_cuda(
+                a.contiguous(), b.contiguous(), u.contiguous(), v.contiguous(),
+                quantize=config.quantize_warp,
+            )
+
+        return remap
+
+    def warp(_i, a, b, u, v):
+        return symmetric_warp(
+            a, b, u, v, quantize=config.quantize_warp, impl=warp_impl, max_disp=max_disp
+        )
+
+    return warp
+
+
 def _resolve_upsample(config: FlowConfig, is_cuda: bool):
     """Reference mode's inter-level upsample of (u, v) for run_pyramid: S1
     on the kernel route, else None (the plain ``pyr_up``)."""
@@ -136,12 +159,7 @@ def coarse_to_fine_pyramids(
         return lucas_kanade(a, b, impl=config.impl)
 
     warp_impl, max_disp = resolve_warp_impl(config, is_cuda)
-
-    def warp(_i, a, b, u, v):
-        return symmetric_warp(
-            a, b, u, v, quantize=config.quantize_warp, impl=warp_impl, max_disp=max_disp
-        )
-
+    warp = _resolve_warp(config, warp_impl, max_disp, is_cuda)
     warp_solve = _resolve_warp_solve(config, warp_impl, max_disp, is_cuda)
     level_step = _resolve_level_step(config, max_disp, warp_solve)
     return run_pyramid(

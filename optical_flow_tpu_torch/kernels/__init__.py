@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for the H100 (sm_90a), one per TPU kernel of
-the repository, each with its plain PyTorch version:
+the repository and W1 for a chain the JAX package left to XLA, each with
+its plain PyTorch version:
 
   K1  lk_kernel.lucas_kanade_cuda         csrc/lk.cu (a warp a strip of rows, the
       whole LK tail in registers; strip shape by the grid)
@@ -13,6 +14,8 @@ the repository, each with its plain PyTorch version:
   P1  tile_copy_kernel.tile_copy_cuda     csrc/tile_copy.cu (the mesh probe)
   S1  pyrup_kernel.pyr_up_pair_cuda       csrc/pyrup.cu (reference mode's upsample:
       a thread two coarse columns down a strip, 16-byte stores at even widths)
+  W1  remap_kernel.symmetric_remap_cuda   csrc/remap.cu (reference mode's 'gather' warp of
+      both frames; replaces no TPU kernel: the JAX warp is an XLA gather)
   S2  probes.interleave_{rows,cols}_cuda  csrc/probes.cu (probes: no flow path
   S3  probes.colsum_cuda                  csrc/probes.cu  calls them)
   S4  probes.mul_add_chain_cuda           csrc/probes.cu
@@ -28,6 +31,7 @@ from optical_flow_tpu_torch.kernels import _lib
 from optical_flow_tpu_torch.kernels.lk_kernel import lucas_kanade_cuda
 from optical_flow_tpu_torch.kernels.pyrdown_kernel import gaussian_pyramid_cuda, pyr_down_cuda
 from optical_flow_tpu_torch.kernels.pyrup_kernel import pyr_up_pair_cuda
+from optical_flow_tpu_torch.kernels.remap_kernel import symmetric_remap_cuda
 from optical_flow_tpu_torch.kernels.tile_copy_kernel import tile_copy_cuda
 from optical_flow_tpu_torch.kernels.warp_lk_kernel import pyrup_warp_lk_cuda, warp_lk_cuda
 
@@ -49,6 +53,7 @@ __all__ = [
     "pyr_up_pair_cuda",
     "pyrup_warp_lk_cuda",
     "reset_launch_counts",
+    "symmetric_remap_cuda",
     "tile_copy_cuda",
     "warp_lk_cuda",
 ]

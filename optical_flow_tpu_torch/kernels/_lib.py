@@ -38,7 +38,8 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("lk.cu", "pyrdown.cu", "warp_lk.cu", "tile_copy.cu", "pyrup.cu", "probes.cu")
+SOURCES = ("lk.cu", "pyrdown.cu", "warp_lk.cu", "tile_copy.cu", "pyrup.cu", "remap.cu",
+           "probes.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,6 +60,7 @@ _ARGTYPES = {
     "oft_pyrup_warp_lk_tile": [_P] * 6 + [_I, _I, _I, _I, _F] + [_I] * 6 + [_P],
     "oft_tile_copy": [_P, _P, _L, _P],
     "oft_pyrup": [_P] * 4 + [_I] * 3 + [_P],
+    "oft_remap": [_P] * 6 + [_I] * 5 + [_P],  # ... B, H, W, uint8 frames, quantize
     # the probes S2-S4 (csrc/probes.cu); the last int of each: take the 16-byte path
     "oft_interleave_rows": [_P] * 3 + [_I] * 3 + [_P],
     "oft_interleave_cols_f2": [_P] * 3 + [_I] * 3 + [_P],

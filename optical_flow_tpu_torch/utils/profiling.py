@@ -86,6 +86,10 @@ OPS_PER_OUTPUT = {
     "pyrup_warp_lk": 133,
     # clip, negate and quantization 18, warp 24, LK 77
     "warp_lk": 119,
+    # per output position of both frames (W1): the half-flow 2; per frame
+    # the map 2, two fixed-point coordinates 10, the border tests 8, the
+    # taps' +1 2, the lerp 9
+    "remap": 64,
     "copy": 0,
     "interleave": 0,
     # 12 taps, a multiply and an add each, per windowed output

@@ -379,5 +379,6 @@ def test_reference_pipeline_on_card_kernels_equal_plain(cuda_device):
     want = list(TVideoPipeline(tp, device=cuda_device).run(frames))
     levels = 6  # 96 = 2^5 * 3
     assert counts["oft_lk"] == levels * len(got) and counts["oft_pyrup"] == (levels - 1) * len(got)
+    assert counts["oft_remap"] == (levels - 1) * len(got)  # W1: the warp of each finer level
     for g, w in zip(got, want):
         assert torch.equal(g.u, w.u) and torch.equal(g.v, w.v)
