@@ -19,7 +19,7 @@ and phase 18 alone.)
 Phases, each printing one line (any failure raises and exits non-zero):
   1. device: the card's name and its nvidia-smi name/power-limit line;
   2. build: compile the CUDA kernels from optical_flow_tpu_torch/kernels/csrc,
-     and print what the compiler allotted K1-K5, S1, W1, P1 and S2-S4
+     and print what the compiler allotted K1-K5, S1, W1, F1, P1 and S2-S4
      (registers, spills); compile csrc/probes.cu to PTX and fail unless
      S4's kernels multiply and add with mul.rn and add.rn (packed bf16x2
      in the bfloat16 ones), with no fma and, in bfloat16, no conversion,
@@ -35,7 +35,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
      held to max |err| 0 (the unmasked max |err| printed beside it), K3-K5
      also over a ragged and C sweep (shapes that leave partial blocks, C =
      1, 4, 8), K1 over a ragged sweep on both sides of its launcher's
-     strip rule;
+     strip rule; F1 (the feature map) at 1080^2 in float32 and uint8, one
+     frame and a chunk of 16, bit for bit, also over odd planes and every
+     radius;
      K2 per level and as the one-call pyramid of a 1080^2 frame (4
      levels) and of a 720x1280 tracking frame (3 levels), bit for bit, also over ragged and tiny planes and a pyramid to
      1x1; and P1 (the mesh probe's copy kernel) on the probe's tiles, in
@@ -314,6 +316,12 @@ K1_SWEEP = [(2, 135, 271), (3, 3), (3, 7), (2, 7, 57), (9, 60), (15, 31), (17, 8
 W1_SHAPES = [(270, 270), (540, 540), (1080, 1080)]
 W1_SWEEP = [(4, 1080, 1080), (2, 61, 37), (37, 59), (135, 270), (3, 7, 6), (1, 1), (1, 9),
             (9, 1)]
+# F1: the feature map of a 1080^2 frame and of a chunk of 16 (device time
+# on F1_BATCH_SETS use-once chunks); its sweep: odd planes down to 2x2 and a
+# batch, every radius
+F1_SHAPES = [(1080, 1080), (16, 1080, 1080)]
+F1_BATCH_SETS = 10
+F1_SWEEP = [(540, 960), (17, 33), (3, 7), (2, 2), (1, 5), (3, 67, 129)]
 S1_SWEEP = [(2, 135, 135), (270, 271), (1, 1), (1, 9), (9, 1), (2, 7, 5), (33, 64), (31, 130),
             (2, 17, 66), (540, 541), (537, 530), (543, 511), (8, 135, 136)]
 # K3-K5 follow their plain versions operation for operation: held to 0 on the
@@ -610,8 +618,13 @@ def phase_kernels(device, iters=20):
     from optical_flow_tpu_torch.kernels.remap_kernel import (
         symmetric_remap_cuda, symmetric_remap_plain,
     )
+    from optical_flow_tpu_torch.config import PreprocessConfig
+    from optical_flow_tpu_torch.kernels.features_kernel import (
+        MAX_MORPH_ITERATIONS, diff_features_cuda,
+    )
     from optical_flow_tpu_torch.kernels.tile_copy_kernel import tile_copy_cuda, tile_copy_plain
     from optical_flow_tpu_torch.kernels.warp_lk_kernel import pyrup_coarse_halo
+    from optical_flow_tpu_torch.pipeline.preprocess import diff_features
     from optical_flow_tpu_torch.ops.pyramid import (
         _K5, _K5UP, _pad_pyrup, gaussian_pyramid, pyr_up_cols_first,
     )
@@ -853,6 +866,47 @@ def phase_kernels(device, iters=20):
         log(f"  remap sweep {'x'.join(map(str, shape))}: max|err| {err:.3g}")
         if err != 0.0:
             raise AssertionError(f"remap sweep at {shape}: max|err| {err:.3g}, want 0")
+    # F1, the frame's feature map at 1080^2: float32 planes (the fast path's)
+    # and uint8 ones (the faithful path's, saturating), one frame and a chunk
+    # of 16; no PyTorch call fuses the diff, Sobel and the morphology, so no
+    # library time
+    def gray_sets(shape, dtype, n):
+        if dtype == torch.uint8:
+            return [tuple(torch.randint(0, 256, shape, generator=gen, device=device,
+                                        dtype=torch.uint8) for _ in range(2)) for _ in range(n)]
+        return [tuple(torch.empty(shape, device=device).uniform_(0.0, 255.0, generator=gen)
+                      for _ in range(2)) for _ in range(n)]
+
+    for name, dtype, cfg in (("features", torch.float32, PreprocessConfig(faithful_uint8=False)),
+                             ("features_u8", torch.uint8, PreprocessConfig())):
+        for shape in F1_SHAPES:
+            sets = gray_sets(shape, dtype, (USE_ONCE_SETS if len(shape) == 2 else F1_BATCH_SETS) + 1)
+            a, b = sets[0]
+            out, ref = diff_features_cuda(a, b, cfg), diff_features(a, b, cfg)
+            torch.cuda.synchronize()
+            err = levels_err([out], [ref])
+            ms, pms = time_pair(lambda: diff_features(a, b, cfg),
+                                lambda: diff_features_cuda(a, b, cfg), iters)
+            record(name if len(shape) == 2 else f"{name}_b{shape[0]}", shape, err, ms, pms, 0.0,
+                   kernel_cost("features", [a, b], [out]),
+                   device_ms=time_use_once(lambda x, y: diff_features_cuda(x, y, cfg), sets,
+                                           device))
+            del sets, a, b, out, ref
+    # F1's sweep (not timed): odd planes and a batch, every radius it takes,
+    # float32 and uint8 with and without the saturation, bit for bit
+    for shape in F1_SWEEP:
+        for dtype, faithful in ((torch.float32, False), (torch.uint8, True), (torch.uint8, False)):
+            a, b = gray_sets(shape, dtype, 1)[0]
+            err = max(levels_err([diff_features_cuda(a, b, c)], [diff_features(a, b, c)])
+                      for c in (PreprocessConfig(faithful_uint8=faithful, morph_iterations=r)
+                                for r in range(MAX_MORPH_ITERATIONS + 1)))
+            what = f"{'x'.join(map(str, shape))} {str(dtype)[6:]}{' saturated' if faithful else ''}"
+            results["features"].setdefault("sweep", []).append(
+                {"shape": list(shape), "dtype": str(dtype)[6:], "saturate": faithful,
+                 "max_abs_err": err})
+            log(f"  features sweep {what}: max|err| {err:.3g}")
+            if err != 0.0:
+                raise AssertionError(f"features sweep at {what}: max|err| {err:.3g}, want 0")
     for shape in K2_SHAPES:
         x = t(rng.rand(*shape) * 255.0)
         y1, y0 = pyr_down_cuda(x), pyr_down_plain(x)
@@ -1053,7 +1107,8 @@ def phase_slice(device, frames, size):
 
     F = len(frames)
     check_counts("slice", counts,
-                 {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2)})
+                 {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2),
+                  "oft_diff_features": F - 1})
     if len(res_k) != F - 2:
         raise AssertionError(f"expected {F - 2} results, got {len(res_k)}")
     if any(tuple(r.u.shape) != (size, size) for r in res_k):
@@ -1134,7 +1189,8 @@ def phase_mesh_slice(device, frames, size, stream_results):
     F = len(frames)
     check_counts("mesh slice", counts,
                  {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": F - 2,
-                  "oft_pyrup_warp_lk_tile": 2 * tiles * (F - 2), "oft_tile_copy": tiles})
+                  "oft_pyrup_warp_lk_tile": 2 * tiles * (F - 2), "oft_tile_copy": tiles,
+                  "oft_diff_features": F - 1})
     same_results("the mesh slice vs phase 4's kernel path", res, stream_results)
     votes = [int(r.gesture.votes) for r in res]
     return {"frames": F, "launches": counts, "votes": votes,
@@ -1201,7 +1257,8 @@ def phase_reference(device, frames):
         raise AssertionError("the plain reference path launched a kernel")
     F = len(frames)
     check_counts("reference slice", counts, {"oft_lk": 4 * (F - 2), "oft_pyrup": 3 * (F - 2),
-                                             "oft_remap": 3 * (F - 2)})
+                                             "oft_remap": 3 * (F - 2),
+                                             "oft_diff_features": F - 1})
     if len(res_k) != F - 2:
         raise AssertionError(f"expected {F - 2} results, got {len(res_k)}")
     if any(tuple(r.u.shape) != (SIZE, SIZE) for r in res_k):
@@ -1592,7 +1649,7 @@ def chunked_check(device, cfg, frames, want):
         raise AssertionError(f"run_chunked result shapes {shapes}")
     # a call per chunk (the first, a step) and per tail frame, each a batch
     check_counts("run_chunked", counts,
-                 {"oft_pyramid": 4, "oft_lk": 4, "oft_pyrup_warp_lk": 12})
+                 {"oft_pyramid": 4, "oft_lk": 4, "oft_pyrup_warp_lk": 12, "oft_diff_features": 4})
     flat = flatten_results(first)
     bar = slice_bar("run_chunked vs push", flat, want)
     if pipe.state()["frame_idx"] != F:
@@ -3077,7 +3134,8 @@ def phase_serve(device, frames):
     direct, direct_ms = run_stream(fast, frames, device)
     direct_counts = kernels.launch_counts()
     check_counts("direct fast push", direct_counts,
-                 {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2)})
+                 {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2),
+                  "oft_diff_features": F - 1})
     frames_b = synthetic_frames(np.random.RandomState(SEED + 1), F, FRAME_HW)
     direct_b, _ = run_stream(fast, frames_b, device)
     kernels.reset_launch_counts()
@@ -3099,7 +3157,8 @@ def phase_serve(device, frames):
             same_as_direct("served fast stream", r1, direct)
             n_steady = F - 3
             check_counts("served steady frames", steady, {
-                "oft_pyramid": n_steady, "oft_lk": n_steady, "oft_pyrup_warp_lk": 3 * n_steady})
+                "oft_pyramid": n_steady, "oft_lk": n_steady, "oft_pyrup_warp_lk": 3 * n_steady,
+                "oft_diff_features": n_steady})
             torch.cuda.synchronize()
             mem.append(torch.cuda.memory_allocated(device))
             ((key, pipe),) = pooled_pipelines(srv)
@@ -3134,7 +3193,8 @@ def phase_serve(device, frames):
         same_as_direct("mesh-served stream", rm, direct)
         check_counts("mesh-served stream", mesh_counts, {
             "oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": F - 2,
-            "oft_pyrup_warp_lk_tile": 2 * tiles * (F - 2), "oft_tile_copy": tiles})
+            "oft_pyrup_warp_lk_tile": 2 * tiles * (F - 2), "oft_tile_copy": tiles,
+            "oft_diff_features": F - 1})
         out["a"] = {"pooled": [hello1["pooled"], hello2["pooled"]], "results": len(r1) - 2,
                     "bit_identical": True, "steady_launches_per_frame": {
                         k: v / n_steady for k, v in steady.items() if v},
@@ -3919,7 +3979,8 @@ def phase_native_decode(device, frames, clip):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     check_counts("native stream", counts,
-                 {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2)})
+                 {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2),
+                  "oft_diff_features": F - 1})
     same_results("native stream against cv2-decoded frames",
                  got, list(VideoPipeline(fast, device=device).run(bgr_cv2, prefetch=2)))
     got_gray = list(VideoPipeline(fast, device=device).run(read_frames(clip, gray=True),
@@ -3998,7 +4059,8 @@ def phase_examples(device, clip, work):
     from optical_flow_tpu_torch.utils.goldens import reference_dir
 
     F = EXAMPLE_FRAMES
-    stream = {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2)}
+    stream = {"oft_pyramid": F - 1, "oft_lk": F - 2, "oft_pyrup_warp_lk": 3 * (F - 2),
+              "oft_diff_features": F - 1}
     logs = pathlib_root() / "chiprun_out"
     logs.mkdir(exist_ok=True)
     out, counts_by_key = {}, {}
@@ -4195,6 +4257,10 @@ def main() -> int:
         m = re.search(r"remap_pair_kernelI(\w+?)Li(\d)ELb(\d)E", line)
         log(f"  ptxas remap_pair_kernel<{'uint8' if m and m[1] == 'h' else 'float'}, vec={m[2]}, "
             f"quantize={m[3]}>: {line.split(': ', 1)[1]}" if m else f"  ptxas {line}")
+    for line in _lib.ptxas_info("diff_features_kernel"):
+        m = re.search(r"diff_features_kernelI(\w)Lb(\d)ELi(\d)E", line)
+        log(f"  ptxas diff_features_kernel<{'uint8' if m and m[1] == 'h' else 'float'}, "
+            f"saturate={m[2]}, r={m[3]}>: {line.split(': ', 1)[1]}" if m else f"  ptxas {line}")
     for kernel in ("pyrdown_kernel", "tile_copy", "interleave", "colsum", "mul_add_chain"):
         for line in _lib.ptxas_info(kernel):
             log(f"  ptxas {line}")
@@ -4318,6 +4384,10 @@ def main() -> int:
                   "scripts/tpu_pyrup_poc.py:40"),
         "remap": (("oft_remap",), "reference", "optical_flow_tpu_torch/kernels/csrc/remap.cu",
                   "none (the JAX warp, optical_flow_tpu/ops/warp.py:50, is an XLA gather)"),
+        "features": (("oft_diff_features",), "stream",
+                     "optical_flow_tpu_torch/kernels/csrc/features.cu",
+                     "none (the JAX diff_features, optical_flow_tpu/pipeline/preprocess.py, is "
+                     "fused by XLA)"),
         "interleave": (("oft_interleave_cols_f2", "oft_interleave_cols_smem", "oft_interleave_rows"),
                        "probes", "optical_flow_tpu_torch/kernels/csrc/probes.cu",
                        "scripts/tpu_interleave_poc.py:76"),
@@ -4401,6 +4471,15 @@ def main() -> int:
     k2["by_shape"] += [dict(b, entry="oft_pyrdown", levels=2) for b in single["by_shape"]]
     k2["sweep"] += [dict(c, entry="oft_pyrdown", levels=2) for c in single["sweep"]]
     k2["grids_per_call"] = PYRAMID[1] - 1
+    # F1 has one row, the fast frame's float32 call; the faithful frame's
+    # uint8 call and the chunks of 16 stand in its by_shape, marked
+    f1 = per_kernel["features"]
+    f1["by_shape"][0].update(dtype="float32", batch=1)
+    for name, dtype, batch in (("features_u8", "uint8", 1), ("features_b16", "float32", 16),
+                               ("features_u8_b16", "uint8", 16)):
+        extra = per_kernel.pop(name)
+        f1["max_abs_err"] = max(f1["max_abs_err"], extra["max_abs_err"])
+        f1["by_shape"] += [dict(b, dtype=dtype, batch=batch) for b in extra["by_shape"]]
     sustained = {"bytes_per_s": prb["sustained"]["copy_bytes_per_s"],
                  "ops_per_s": {torch.float32: prb["sustained"]["f32_ops_per_s"]}}
     rows = []

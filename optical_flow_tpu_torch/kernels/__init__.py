@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for the H100 (sm_90a), one per TPU kernel of
-the repository and W1 for a chain the JAX package left to XLA, each with
-its plain PyTorch version:
+the repository and W1 and F1 for chains the JAX package left to XLA, each
+with its plain PyTorch version:
 
   K1  lk_kernel.lucas_kanade_cuda         csrc/lk.cu (a warp a strip of rows, the
       whole LK tail in registers; strip shape by the grid)
@@ -16,6 +16,8 @@ its plain PyTorch version:
       a thread two coarse columns down a strip, 16-byte stores at even widths)
   W1  remap_kernel.symmetric_remap_cuda   csrc/remap.cu (reference mode's 'gather' warp of
       both frames; replaces no TPU kernel: the JAX warp is an XLA gather)
+  F1  features_kernel.diff_features_cuda  csrc/features.cu (the frame's feature map,
+      diff_features, in one launch; replaces no TPU kernel: XLA fuses the JAX chain)
   S2  probes.interleave_{rows,cols}_cuda  csrc/probes.cu (probes: no flow path
   S3  probes.colsum_cuda                  csrc/probes.cu  calls them)
   S4  probes.mul_add_chain_cuda           csrc/probes.cu
@@ -28,6 +30,7 @@ tensor it runs the plain version. Launches are counted in
 from typing import Dict
 
 from optical_flow_tpu_torch.kernels import _lib
+from optical_flow_tpu_torch.kernels.features_kernel import diff_features_cuda
 from optical_flow_tpu_torch.kernels.lk_kernel import lucas_kanade_cuda
 from optical_flow_tpu_torch.kernels.pyrdown_kernel import gaussian_pyramid_cuda, pyr_down_cuda
 from optical_flow_tpu_torch.kernels.pyrup_kernel import pyr_up_pair_cuda
@@ -46,6 +49,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "diff_features_cuda",
     "gaussian_pyramid_cuda",
     "launch_counts",
     "lucas_kanade_cuda",

@@ -39,7 +39,7 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("lk.cu", "pyrdown.cu", "warp_lk.cu", "tile_copy.cu", "pyrup.cu", "remap.cu",
-           "probes.cu")
+           "features.cu", "probes.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,6 +61,8 @@ _ARGTYPES = {
     "oft_tile_copy": [_P, _P, _L, _P],
     "oft_pyrup": [_P] * 4 + [_I] * 3 + [_P],
     "oft_remap": [_P] * 6 + [_I] * 5 + [_P],  # ... B, H, W, uint8 frames, quantize
+    # cur, prev, out, B, H, W, uint8 planes, saturate, learning_rate, diff_thresh, radius
+    "oft_diff_features": [_P] * 3 + [_I] * 5 + [_F, _F, _I, _P],
     # the probes S2-S4 (csrc/probes.cu); the last int of each: take the 16-byte path
     "oft_interleave_rows": [_P] * 3 + [_I] * 3 + [_P],
     "oft_interleave_cols_f2": [_P] * 3 + [_I] * 3 + [_P],

@@ -19,11 +19,12 @@ the warm-up frames and the first frame (or chunk) of a shape run eagerly.
 card through pinned memory without blocking the host.
 
 Every step runs the stages ``stage.preprocess`` (resize, blur, gray),
-``stage.features`` (``diff_features``), ``stage.pyramid`` (pyramid reuse
-only), ``stage.flow`` (coarse to fine) and ``stage.gesture``; with the
-program's tracing on (``utils/profiling.set_tracing``) each is a span and,
-on a card, a pair of timing events (``profiling.stage``). A step run
-eagerly is the span ``step.eager`` and counts in ``profiling.counters``.
+``stage.features`` (``diff_features``; kernel F1 on the kernel route),
+``stage.pyramid`` (pyramid reuse only), ``stage.flow`` (coarse to fine) and
+``stage.gesture``; with the program's tracing on
+(``utils/profiling.set_tracing``) each is a span and, on a card, a pair of
+timing events (``profiling.stage``). A step run eagerly is the span
+``step.eager`` and counts in ``profiling.counters``.
 Spans carry the index of the frame pushed, or of a chunk's first frame.
 
 With a ``mesh`` (parallel/mesh.py) every flow step goes through the
@@ -46,6 +47,7 @@ from optical_flow_tpu_torch.flow.coarse_to_fine import (
     coarse_to_fine_pyramids,
     coarse_to_fine_with_images,
 )
+from optical_flow_tpu_torch.flow.lk import use_cuda
 from optical_flow_tpu_torch.io.prefetch import (
     pinned_copy,
     prefetch_chunks_to_device,
@@ -214,8 +216,18 @@ class VideoPipeline:
             return self._resizers[key](x)
 
     def _diff(self, cur_gray, prev_gray):
+        """``diff_features``: through kernel F1 on the kernel route
+        (``flow.impl``) where F1 takes the planes, else the plain chain."""
+        pre = self.config.preprocess
         with self._stage("stage.features"):
-            return diff_features(cur_gray, prev_gray, self.config.preprocess)
+            if use_cuda(self.config.flow.impl, cur_gray.is_cuda):
+                from optical_flow_tpu_torch.kernels import features_kernel
+
+                if features_kernel.kernel_takes(cur_gray, prev_gray, pre):
+                    return features_kernel.diff_features_cuda(
+                        cur_gray.contiguous(), prev_gray.contiguous(), pre
+                    )
+            return diff_features(cur_gray, prev_gray, pre)
 
     def _build_pyr(self, diff):
         with self._stage("stage.pyramid"):

@@ -90,6 +90,10 @@ OPS_PER_OUTPUT = {
     # the map 2, two fixed-point coordinates 10, the border tests 8, the
     # taps' +1 2, the lerp 9
     "remap": 64,
+    # per output of F1 (diff_features, radius 2): the diff 2, the threshold 1,
+    # Sobel x + y 13 (two smoothings of 4, two differences of 2, their sum),
+    # the 5x5 max and min as separable passes of 4 each, 16
+    "features": 32,
     "copy": 0,
     "interleave": 0,
     # 12 taps, a multiply and an add each, per windowed output
